@@ -1,0 +1,27 @@
+"""edrgp_tpu_torch — effective dimensionality reduction with Gaussian
+processes in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+The PyTorch port of :mod:`edrgp_tpu`, which stays the reference.  It imports
+neither JAX nor scikit-learn nor the JAX package.  Ported so far: the
+exact-GP EDR main path (RBF kernel, Cholesky NLML with the trace-form
+adjoint, L-BFGS ML-II with restarts, predictive gradients, SVD, the
+iterative and block EDR with normalization).
+"""
+
+from .edr.base import BaseEDR, BlockEDR, IterativeEDR
+from .edr.edr import EffectiveDimensionalityReduction
+from .utils import (SVDTransformer, discrepancy, ort_space,
+                    subspace_variance_ratio)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EffectiveDimensionalityReduction",
+    "BlockEDR",
+    "IterativeEDR",
+    "BaseEDR",
+    "SVDTransformer",
+    "discrepancy",
+    "ort_space",
+    "subspace_variance_ratio",
+]

@@ -1,0 +1,190 @@
+"""The three RBF kernels of the main path: wrappers, plain versions, counts.
+
+Each wrapper dispatches on the device of the tensors it is given: a CUDA
+tensor launches the hand-written kernel in ``rbf.cu`` (float32 only; anything
+else raises), a CPU tensor takes the plain PyTorch version beside it, which
+computes the same function with the JAX package's math.  There is no
+fallback: a failed build, load or launch raises.  ``LAUNCHES`` counts the
+kernel launches of each wrapper, so a run can show that it went through the
+kernels.
+
+=====================  ======================================  =============
+wrapper                replaces (edrgp_tpu/ops/pallas/rbf.py)  serves
+=====================  ======================================  =============
+rbf_kernel_matrix      rbf_kernel_matrix (pallas_call :98)      K(X, X) in the
+                                                                NLML forward,
+                                                                K(X, X*) in
+                                                                predict
+rbf_grad_mu            rbf_grad_mu (pallas_call :172)           dμ/dx*
+rbf_nlml_adjoint       rbf_nlml_adjoint (pallas_call :262)      NLML backward
+=====================  ======================================  =============
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import sq_dist
+from . import _build
+
+__all__ = ["rbf_kernel_matrix", "rbf_grad_mu", "rbf_nlml_adjoint",
+           "rbf_kernel_matrix_plain", "rbf_grad_mu_plain",
+           "rbf_nlml_adjoint_plain", "LAUNCHES", "reset_launches"]
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"rbf_kernel_matrix": 0, "rbf_grad_mu": 0, "rbf_nlml_adjoint": 0}
+
+#: Rows of the [rows, N] kernel block the plain dμ/dx* holds at once.
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain path); True for float32 CUDA tensors on
+    one device (kernel path); raises for anything else."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+    return True
+
+
+def _lengthscale(lengthscale, Q: int, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(lengthscale, torch.Tensor):
+        lengthscale = lengthscale.detach()
+    ls = torch.as_tensor(lengthscale, dtype=like.dtype, device=like.device)
+    return ls.broadcast_to((Q,))
+
+
+def _scalar(sigma2, like: torch.Tensor) -> torch.Tensor:
+    """σ² as a one-element float32 tensor on the card: the kernel reads it
+    there, so the host never waits for its value."""
+    if isinstance(sigma2, torch.Tensor):
+        sigma2 = sigma2.detach()
+    return torch.as_tensor(sigma2, dtype=torch.float32,
+                           device=like.device).reshape(1).contiguous()
+
+
+def _launch(name: str, *args) -> None:
+    lib = _build.load()
+    code = getattr(lib, "edrgp_" + name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.edrgp_error_string(code).decode()} "
+                           f"(cudaError {code})")
+    LAUNCHES[name] += 1
+
+
+def _check_rows(name: str, A: torch.Tensor, B: torch.Tensor) -> None:
+    if A.ndim != 2 or B.ndim != 2 or A.shape[1] != B.shape[1]:
+        raise ValueError(f"{name}: need [M, Q] and [N, Q] inputs, got "
+                         f"{tuple(A.shape)} and {tuple(B.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# K(X1, X2) = σ² exp(−½‖x1 − x2‖²) on pre-scaled inputs
+# ---------------------------------------------------------------------------
+
+def rbf_kernel_matrix_plain(X1s, X2s, sigma2):
+    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N]."""
+    return sigma2 * torch.exp(-0.5 * sq_dist(X1s, X2s))
+
+
+def rbf_kernel_matrix(X1s, X2s, sigma2):
+    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N]."""
+    _check_rows("rbf_kernel_matrix", X1s, X2s)
+    if not _on_card(X1s, X2s):
+        return rbf_kernel_matrix_plain(X1s, X2s, sigma2)
+    (M, Q), N = X1s.shape, X2s.shape[0]
+    x1, x2 = X1s.contiguous(), X2s.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x1.device)
+    if M and N:
+        s2 = _scalar(sigma2, x1)
+        _launch("rbf_kernel_matrix", x1.data_ptr(), x2.data_ptr(),
+                s2.data_ptr(), out.data_ptr(), M, N, Q)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dμ/dx*: G[m] = Σᵢ αᵢ k(x*_m, xᵢ)(xᵢ − x*_m)/ℓ²
+# ---------------------------------------------------------------------------
+
+def rbf_grad_mu_plain(Xnew, X, alpha, lengthscale, sigma2):
+    """dμ/dx* [M, Q] of μ(x*) = Σᵢ αᵢ σ² exp(−½‖(x*−xᵢ)/ℓ‖²), computed as
+    the TPU kernel does: (Σᵢ Wᵢ xsᵢ − xs* Σᵢ Wᵢ)/ℓ over row blocks."""
+    _check_rows("rbf_grad_mu", Xnew, X)
+    ls = _lengthscale(lengthscale, X.shape[1], X)
+    Xs, Xt = Xnew / ls, X / ls
+    rows = max(1, _PLAIN_BLOCK_ELEMS // max(X.shape[0], 1))
+    parts = []
+    for xs in Xs.split(rows):
+        W = rbf_kernel_matrix_plain(xs, Xt, sigma2) * alpha[None, :]
+        parts.append(W @ Xt - xs * W.sum(1, keepdim=True))
+    return torch.cat(parts) / ls
+
+
+def rbf_grad_mu(Xnew, X, alpha, lengthscale, sigma2):
+    """dμ/dx* [M, Q] for Xnew [M, Q], X [N, Q] unscaled, α [N], ℓ scalar or
+    [Q], σ² scalar; never forms the [M, N] cross-kernel on the card."""
+    _check_rows("rbf_grad_mu", Xnew, X)
+    if alpha.shape != (X.shape[0],):
+        raise ValueError(f"alpha must be [{X.shape[0]}], got "
+                         f"{tuple(alpha.shape)}")
+    if not _on_card(Xnew, X, alpha):
+        return rbf_grad_mu_plain(Xnew, X, alpha, lengthscale, sigma2)
+    (M, Q), N = Xnew.shape, X.shape[0]
+    ls = _lengthscale(lengthscale, Q, X)
+    xs, xt = (Xnew.detach() / ls).contiguous(), (X.detach() / ls).contiguous()
+    a = alpha.detach().contiguous()
+    out = torch.empty_like(xs)
+    if M:
+        s2 = _scalar(sigma2, xs)
+        _launch("rbf_grad_mu", xs.data_ptr(), xt.data_ptr(), a.data_ptr(),
+                s2.data_ptr(), out.data_ptr(), M, N, Q)
+    return out / ls
+
+
+# ---------------------------------------------------------------------------
+# NLML adjoint: P = (W∘K)·Xs [N, Q], r = (W∘K)·1 [N] for a symmetric W
+# ---------------------------------------------------------------------------
+
+def rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2):
+    """(P, r) with P = (W∘K)·Xs and r = (W∘K)·1, K = K(Xs, Xs), Xs = X/ℓ."""
+    ls = _lengthscale(lengthscale, X.shape[1], X)
+    Xs = X / ls
+    A = W * rbf_kernel_matrix_plain(Xs, Xs, sigma2)
+    return A @ Xs, A.sum(1)
+
+
+def rbf_nlml_adjoint(X, W, lengthscale, sigma2):
+    """(P [N, Q], r [N]) for X [N, Q] unscaled and the [N, N] cotangent W of
+    K; reads W once and recomputes K on the fly.  Rows and columns are not
+    symmetrized: W must be symmetric for the NLML chain rule downstream."""
+    N = X.shape[0]
+    if X.ndim != 2 or W.shape != (N, N):
+        raise ValueError(f"rbf_nlml_adjoint: need X [N, Q] and W [N, N], "
+                         f"got {tuple(X.shape)} and {tuple(W.shape)}")
+    if not _on_card(X, W):
+        return rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2)
+    Q = X.shape[1]
+    ls = _lengthscale(lengthscale, Q, X)
+    xs = (X.detach() / ls).contiguous()
+    w = W.detach().contiguous()
+    P = torch.empty_like(xs)
+    r = torch.empty((N,), dtype=torch.float32, device=xs.device)
+    if N:
+        s2 = _scalar(sigma2, xs)
+        _launch("rbf_nlml_adjoint", xs.data_ptr(), w.data_ptr(),
+                s2.data_ptr(), P.data_ptr(), r.data_ptr(), N, Q)
+    return P, r

@@ -1,0 +1,107 @@
+"""Cholesky-centric linear algebra with escalating jitter.
+
+The port of the parts of :mod:`edrgp_tpu.ops.linalg` the exact GP needs.  The
+factorizations go to ``torch.linalg`` (cuSOLVER on the card, LAPACK on the
+CPU); the hand-blocked TPU recursions of the JAX package have no
+counterpart here.  Failure of a factorization is read from
+``torch.linalg.cholesky_ex``'s ``info``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import MAX_JITTER_TRIES, base_jitter
+
+__all__ = ["safe_cholesky", "cholesky_once", "tri_solve", "cho_solve",
+           "logdet_from_chol", "logdet_and_quad", "jitter_ladder"]
+
+
+def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
+    """(jitter, L): the first jitter of the ladder 0, j0, 10·j0, … (times
+    max(mean diag, 1)) for which chol(A + jitter·I) succeeds, and that
+    factor.  After ``MAX_JITTER_TRIES`` failed escalations L is all NaN, as
+    the JAX package's failed factor is, so an objective built on it is
+    non-finite."""
+    if jitter0 is None:
+        jitter0 = base_jitter(A.dtype)
+    A = A.detach()
+    L, info = torch.linalg.cholesky_ex(A)
+    if int(info) == 0:
+        return 0.0, L
+    diag_mean = max(float(A.diagonal().mean()), 1.0)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    for k in range(1, MAX_JITTER_TRIES + 1):
+        jitter = jitter0 * 10.0 ** (k - 1) * diag_mean
+        L, info = torch.linalg.cholesky_ex(A + jitter * eye)
+        if int(info) == 0:
+            return jitter, L
+    return jitter, torch.full_like(A, float("nan"))
+
+
+def cholesky_once(A: torch.Tensor, jitter0: float | None = None):
+    """Value-only escalating-jitter Cholesky: one factorization per attempt.
+    Not differentiable (the input is detached); use :func:`safe_cholesky`
+    where a gradient must flow through the factor."""
+    return jitter_ladder(A, jitter0)[1]
+
+
+def safe_cholesky(A: torch.Tensor, jitter0: float | None = None):
+    """Lower Cholesky of a PSD matrix with the jitter ladder of
+    :func:`jitter_ladder`; differentiable in A when A requires grad (the
+    factor is then recomputed once, with the chosen jitter, on the graph)."""
+    jitter, L = jitter_ladder(A, jitter0)
+    if not A.requires_grad or not torch.is_grad_enabled():
+        return L
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.cholesky(A + jitter * eye)
+
+
+def tri_solve(L: torch.Tensor, B: torch.Tensor, *,
+              lower: bool = True) -> torch.Tensor:
+    """Solve L X = B for triangular L."""
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L Lᵀ) X = B given the lower Cholesky factor L."""
+    return torch.cholesky_solve(B, L)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.log(L.diagonal()).sum()
+
+
+class LogdetAndQuad(torch.autograd.Function):
+    """(log|Ky|, yᵀKy⁻¹y) with the trace-form adjoint.
+
+    ∂log|K|/∂K = K⁻¹ and ∂(yᵀK⁻¹y)/∂K = −ααᵀ with α = K⁻¹y, so the
+    backward never differentiates through the factorization.  The cotangent
+    of K is symmetrized: the fused RBF adjoint downstream
+    (:class:`edrgp_tpu_torch.ops.exact.RBFKy`) is valid only for a symmetric
+    one.
+    """
+
+    @staticmethod
+    def forward(ctx, Ky, y):
+        L = cholesky_once(Ky)
+        alpha = cho_solve(L, y[:, None])[:, 0]
+        ctx.save_for_backward(L, alpha)
+        return logdet_from_chol(L), y @ alpha
+
+    @staticmethod
+    def backward(ctx, g_logdet, g_quad):
+        L, alpha = ctx.saved_tensors
+        dK = dy = None
+        if ctx.needs_input_grad[0]:
+            dK = -g_quad * torch.outer(alpha, alpha)
+            dK = dK + g_logdet * torch.cholesky_inverse(L)
+            dK = 0.5 * (dK + dK.mT)
+        if ctx.needs_input_grad[1]:
+            dy = 2.0 * g_quad * alpha
+        return dK, dy
+
+
+def logdet_and_quad(Ky: torch.Tensor, y: torch.Tensor):
+    """(log|Ky|, yᵀKy⁻¹y); see :class:`LogdetAndQuad`."""
+    return LogdetAndQuad.apply(Ky, y)

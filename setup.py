@@ -33,7 +33,9 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     license="MIT",
-    packages=find_packages(include=["edrgp_tpu", "edrgp_tpu.*"]),
+    packages=find_packages(include=["edrgp_tpu", "edrgp_tpu.*",
+                                    "edrgp_tpu_torch", "edrgp_tpu_torch.*"]),
+    package_data={"edrgp_tpu_torch": ["ops/cuda/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

@@ -32,6 +32,11 @@ if os.environ.get("EDRGP_TEST_CACHE"):
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")
+
+
 def _build_native_loader():
     """Build ``native/libedrgp_data.so`` so the C++ loader tests run
     (skip only when no compiler is available)."""

@@ -1,0 +1,120 @@
+"""The port on an NVIDIA GPU: each CUDA kernel against its plain version,
+the NLML gradient through the kernels against plain autograd, and a small
+EDR fit on the card against the CPU float64 fit.
+
+Every test needs a card and skips without one.  The file imports no JAX, so
+on the GPU machine (which has no JAX) it runs without the suite's
+conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from edrgp_tpu_torch import EffectiveDimensionalityReduction, SVDTransformer
+from edrgp_tpu_torch import config, discrepancy
+from edrgp_tpu_torch.datasets import get_gaussian_inputs, get_tanh_targets
+from edrgp_tpu_torch.models import GaussianProcessRegressor
+from edrgp_tpu_torch.models.state import ExactGPModel
+from edrgp_tpu_torch.ops import exact, linalg
+from edrgp_tpu_torch.ops.cuda import rbf
+from edrgp_tpu_torch.ops.kernels import RBF
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 3, 10, 33])
+def test_cuda_kernels_match_plain(card, Q):
+    """Kernel vs plain version on the card; the plain versions use the
+    matmul trick, the kernels the direct difference, hence tolerances
+    relative to the largest entry: K 1e-5, G and A 1e-4."""
+    g = torch.Generator().manual_seed(Q)
+    M, N = 300, 517
+    X1 = torch.randn(M, Q, generator=g).to(card)
+    X2 = torch.randn(N, Q, generator=g).to(card)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    alpha = torch.randn(N, generator=g).to(card)
+    W = torch.randn(N, N, generator=g).to(card)
+    W = W + W.T
+    rbf.reset_launches()
+    K = rbf.rbf_kernel_matrix(X1 / ls, X2 / ls, 1.3)
+    G = rbf.rbf_grad_mu(X1, X2, alpha, ls, 1.3)
+    P, r = rbf.rbf_nlml_adjoint(X2, W, ls, 1.3)
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in rbf.LAUNCHES.values())
+    assert _rel(K, rbf.rbf_kernel_matrix_plain(X1 / ls, X2 / ls, 1.3)) < 1e-5
+    assert _rel(G, rbf.rbf_grad_mu_plain(X1, X2, alpha, ls, 1.3)) < 1e-4
+    P0, r0 = rbf.rbf_nlml_adjoint_plain(X2, W, ls, 1.3)
+    assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_float64(card):
+    X = torch.zeros((4, 2), dtype=torch.float64, device=card)
+    with pytest.raises(TypeError):
+        rbf.rbf_kernel_matrix(X, X, 1.0)
+
+
+@pytest.mark.cuda
+def test_cuda_nlml_gradient_matches_plain_backward(card):
+    rng = np.random.default_rng(0)
+    N, Q = 700, 4
+    X = rng.normal(size=(N, Q))
+    y = np.sin(X @ rng.normal(size=Q)) + 0.1 * rng.normal(size=N)
+    m = ExactGPModel(X, y, RBF(Q, ARD=True), device=card)
+    out = []
+    for Ky in (exact._Ky, exact._Ky_generic):
+        m.zero_grad()
+        rbf.reset_launches()
+        logdet, quad = linalg.logdet_and_quad(Ky(m, m._X), m._y)
+        (0.5 * (N * math.log(2 * math.pi) + logdet + quad)).backward()
+        out.append(([p.grad.clone() for p in m.parameters()],
+                    dict(rbf.LAUNCHES)))
+    assert out[0][1]["rbf_kernel_matrix"] == 1
+    assert out[0][1]["rbf_nlml_adjoint"] == 1
+    assert sum(out[1][1].values()) == 0
+    for a, b in zip(out[0][0], out[1][0]):
+        assert _rel(a, b) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_edr_fit_matches_cpu(card):
+    rng = np.random.default_rng(5)
+    X = get_gaussian_inputs(eig_values=[1, 0.3], sample_size=300,
+                            eig_vectors=np.array([[1, 1], [-1, 1]]), rng=rng)
+    y = get_tanh_targets(X, [0.5, 0.5], rng=rng)
+    comps = []
+    for device in ("cpu", card):
+        rbf.reset_launches()
+        edr = EffectiveDimensionalityReduction(
+            GaussianProcessRegressor(device=device), SVDTransformer(),
+            n_components=1).fit(X, y)
+        comps.append(edr.components_.T)
+    assert all(v >= 1 for v in rbf.LAUNCHES.values())
+    assert discrepancy(comps[0] / np.linalg.norm(comps[0]), comps[1]) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_device_resolution_refuses_tf32(card):
+    assert config.resolve_device("cuda").type == "cuda"
+    assert config.default_dtype(card) == torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            config.resolve_device("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,0 +1,100 @@
+"""The port's RBF kernels (edrgp_tpu_torch.ops.cuda.rbf) against the JAX
+package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against the Pallas kernels in interpret mode, float32, at the shapes of
+tests/test_pallas.py, with that file's tolerance (rtol = atol = 2e-4).  The
+hand-written CUDA kernels themselves are held against the plain versions in
+tests/test_torch_cuda.py, which needs a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from edrgp_tpu.ops.pallas import rbf as jrbf
+from edrgp_tpu_torch.ops.cuda import _build
+from edrgp_tpu_torch.ops.cuda import rbf as trbf
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+SHAPES = [(257, 513, 3), (135, 135, 4)]
+
+
+def _inputs(M, N, Q, ard, seed=0):
+    rng = np.random.default_rng(seed)
+    X1 = rng.normal(size=(M, Q)).astype(np.float32)
+    X2 = rng.normal(size=(N, Q)).astype(np.float32)
+    ls = (rng.uniform(0.5, 2.0, Q) if ard else np.array(1.3)).astype(
+        np.float32)
+    alpha = rng.normal(size=N).astype(np.float32)
+    Wm = rng.normal(size=(N, N))
+    W = (Wm + Wm.T).astype(np.float32)
+    return X1, X2, ls, alpha, W
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("ard", [True, False])
+@pytest.mark.parametrize("M,N,Q", SHAPES)
+def test_kernel_matrix_plain_matches_pallas(M, N, Q, ard):
+    X1, X2, ls, _, _ = _inputs(M, N, Q, ard)
+    ref = jrbf.rbf_kernel_matrix(X1 / ls, X2 / ls, 1.7, interpret=True)
+    got = trbf.rbf_kernel_matrix(_t(X1 / ls), _t(X2 / ls), 1.7)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("ard", [True, False])
+@pytest.mark.parametrize("M,N,Q", SHAPES)
+def test_grad_mu_plain_matches_pallas(M, N, Q, ard):
+    X1, X2, ls, alpha, _ = _inputs(M, N, Q, ard)
+    ref = jrbf.rbf_grad_mu(X1, X2, alpha, ls, 0.8, interpret=True)
+    got = trbf.rbf_grad_mu(_t(X1), _t(X2), _t(alpha), _t(ls), 0.8)
+    assert got.shape == (M, Q)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("ard", [True, False])
+@pytest.mark.parametrize("M,N,Q", SHAPES)
+def test_nlml_adjoint_plain_matches_pallas(M, N, Q, ard):
+    _, X, ls, _, W = _inputs(M, N, Q, ard)
+    # The adjoint defaults to precision="high", the TPU's 3-pass bf16 split,
+    # which drops the lo·lo term (~1e-5 relative per product); "default" is
+    # the exact float32 product in interpret mode, the math the port runs.
+    P_ref, r_ref = jrbf.rbf_nlml_adjoint(X, W, ls, 1.3, interpret=True,
+                                         precision="default")
+    P, r = trbf.rbf_nlml_adjoint(_t(X), _t(W), _t(ls), 1.3)
+    assert P.shape == (N, Q) and r.shape == (N,)
+    np.testing.assert_allclose(P.numpy(), np.asarray(P_ref), **TOL)
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    X1, X2, ls, alpha, W = _inputs(9, 11, 2, True)
+    trbf.reset_launches()
+    trbf.rbf_kernel_matrix(_t(X1), _t(X2), 1.0)
+    trbf.rbf_grad_mu(_t(X1), _t(X2), _t(alpha), _t(ls), 1.0)
+    trbf.rbf_nlml_adjoint(_t(X2), _t(W), _t(ls), 1.0)
+    assert trbf.LAUNCHES == {"rbf_kernel_matrix": 0, "rbf_grad_mu": 0,
+                             "rbf_nlml_adjoint": 0}
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    X = torch.zeros((4, 2), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        trbf.rbf_kernel_matrix(X, X, 1.0)
+
+
+def test_shape_mismatch_raises():
+    with pytest.raises(ValueError):
+        trbf.rbf_kernel_matrix(torch.zeros(3, 2), torch.zeros(4, 3), 1.0)
+    with pytest.raises(ValueError):
+        trbf.rbf_nlml_adjoint(torch.zeros(3, 2), torch.zeros(4, 4), 1.0, 1.0)
+
+
+def test_build_raises_without_a_toolkit(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
