@@ -9,8 +9,11 @@ Phases, in order, each printing one JSON line:
 1. build — compile ``edrgp_tpu_torch/ops/cuda/rbf.cu`` from the checkout;
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card, float32, at the main path's shapes: the largest error relative
-   to the plain result's largest entry (limits: K 1e-5, G and A 1e-4) and
-   both times, from CUDA events after a warm-up;
+   to the plain result's largest entry (limits: K 1e-5, G and A 1e-4), both
+   times from CUDA events after a warm-up (σ² a tensor on the card, as the
+   main path passes it), the kernel's bound on an H100 with the resource
+   that sets it, the share of that bound the kernel reaches, and for K and
+   A that a second launch gives the same bits;
 3. nlml — NLML value+grad at N=10,000, Q=8, RBF-ARD: ms per evaluation
    through the kernels and through the plain autograd backward, and the
    largest relative gradient difference between the two;
@@ -22,7 +25,10 @@ Phases, in order, each printing one JSON line:
    subspace, 5 float32 restarts, ``max_iters=200``; every kernel must launch
    in it and the subspace must be recovered (discrepancy < 0.1).
 
-Then one JSON line on the kernels, the ``nvidia-smi`` name and power limit,
+Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
+of bound, launches on the main path; ``library_ms`` is null because no
+single PyTorch call computes any of the three functions), the
+``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Any failure raises and exits non-zero; so does a machine without
 CUDA.  The script imports nothing of JAX.
@@ -47,6 +53,18 @@ LIMITS = {"rbf_kernel_matrix": 1e-5, "rbf_grad_mu": 1e-4,
 #: The shape (rows, columns, Q) whose times the kernels line reports: the
 #: first EDR fit's N = 8,192 training rows in Q = 10.
 MAIN_SHAPE = (8192, 8192, 10)
+#: Published peaks of one H100 SXM at 700 W: HBM bytes and fp32 flops (FMA
+#: counted as two, no tensor cores) per millisecond.
+HBM_BYTES_PER_MS = 3.35e9
+FP32_FLOPS_PER_MS = 67e9
+#: Why library_ms is null for every kernel.
+NO_LIBRARY = {
+    "rbf_kernel_matrix": "no single PyTorch call: a distance, then an exp",
+    "rbf_grad_mu": "no single PyTorch call: an elementwise weighting, a "
+                   "skinny product and a row sum",
+    "rbf_nlml_adjoint": "no single PyTorch call: an elementwise weighting, "
+                        "a skinny product and a row sum",
+}
 
 
 def emit(**fields):
@@ -58,14 +76,44 @@ def check(ok, message):
         raise RuntimeError(message)
 
 
+def kernel_bound(name, rows, cols, Q):
+    """(ms, resource): the least time an H100 could take for the kernel's
+    work, the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its fp32 flops over the fp32 peak;
+    resource is "hbm_read", "hbm_write" or "fp32".  Flops per pair: the
+    distance is Q subtractions and Q FMAs (3Q); G and A add Q FMAs for the
+    weighted sum (2Q), and each kernel a few scalar operations around the
+    exp."""
+    if name == "rbf_kernel_matrix":
+        read, write = (rows + cols) * Q * 4, rows * cols * 4
+        flops = (3 * Q + 2) * rows * cols
+    elif name == "rbf_grad_mu":
+        read, write = (rows * Q + cols * Q + cols) * 4, rows * Q * 4
+        flops = (5 * Q + 3) * rows * cols
+    else:
+        read, write = (rows * cols + rows * Q) * 4, rows * (Q + 1) * 4
+        flops = (5 * Q + 4) * rows * cols
+    bytes_ms = (read + write) / HBM_BYTES_PER_MS
+    flops_ms = flops / FP32_FLOPS_PER_MS
+    if flops_ms > bytes_ms:
+        return flops_ms, "fp32"
+    return bytes_ms, "hbm_write" if write > read else "hbm_read"
+
+
 def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` in ms over ``reps`` runs after warm-up."""
+    """Mean device time of ``fn`` in ms over ``reps`` runs after warm-up.
+    The card first spins for ~10 ms while the host queues the runs, so the
+    span between the events is the card's work, not the host's time to
+    enqueue it (a wrapper's Python and CUDA API calls can take as long as a
+    0.1 ms kernel).  A ``fn`` that waits on the card inside still times
+    right: it only queues less ahead."""
     import torch
     fn()
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -103,7 +151,7 @@ def phase_build():
     regs = [line.split(":", 1)[1].strip()
             for line in _build.build_log.splitlines() if "Used" in line]
     emit(phase="build", seconds=time.perf_counter() - t0,
-         library=str(_build.LIBRARY), ptxas=regs)
+         library=str(_build.library_path()), ptxas=regs)
 
 
 def _kernel_case(name, rows, cols, Q, gen):
@@ -113,36 +161,38 @@ def _kernel_case(name, rows, cols, Q, gen):
     dev = "cuda"
     ls = 0.5 * math.sqrt(Q) * (1.0 + torch.rand(Q, generator=gen,
                                                 device=dev))
+    s2 = torch.tensor(1.3, device=dev)
     if name == "rbf_kernel_matrix":
         X1 = torch.randn(rows, Q, generator=gen, device=dev) / ls
         X2 = torch.randn(cols, Q, generator=gen, device=dev) / ls
-        return (lambda: rbf.rbf_kernel_matrix(X1, X2, 1.3),
-                lambda: rbf.rbf_kernel_matrix_plain(X1, X2, 1.3))
+        return (lambda: rbf.rbf_kernel_matrix(X1, X2, s2),
+                lambda: rbf.rbf_kernel_matrix_plain(X1, X2, s2))
     if name == "rbf_grad_mu":
         Xn = torch.randn(rows, Q, generator=gen, device=dev)
         X = torch.randn(cols, Q, generator=gen, device=dev)
         a = torch.randn(cols, generator=gen, device=dev)
-        return (lambda: rbf.rbf_grad_mu(Xn, X, a, ls, 1.3),
-                lambda: rbf.rbf_grad_mu_plain(Xn, X, a, ls, 1.3))
+        return (lambda: rbf.rbf_grad_mu(Xn, X, a, ls, s2),
+                lambda: rbf.rbf_grad_mu_plain(Xn, X, a, ls, s2))
     X = torch.randn(rows, Q, generator=gen, device=dev)
     W = torch.randn(rows, rows, generator=gen, device=dev)
     W = 0.5 * (W + W.T)
-    return (lambda: rbf.rbf_nlml_adjoint(X, W, ls, 1.3),
-            lambda: rbf.rbf_nlml_adjoint_plain(X, W, ls, 1.3))
+    return (lambda: rbf.rbf_nlml_adjoint(X, W, ls, s2),
+            lambda: rbf.rbf_nlml_adjoint_plain(X, W, ls, s2))
 
 
 def phase_kernels():
-    """Kernel vs plain at the issue's shapes and the main path's (N=8,192
-    at Q=10 and at the reduced Q=3; the held-out cross-kernel)."""
+    """Kernel vs plain at a ragged shape and the main path's: N=8,192 at
+    each Q of the EDR's fits (10, 7, 4, 3), the held-out cross-kernel, G at
+    M=102,400, and K and A at N=8,191 (N % 4 != 0: 4-byte stores for K,
+    4-byte cp.async loads instead of TMA for A)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
+    fits = [(8192, 8192, Q) for Q in (10, 7, 4, 3)]
     shapes = {
-        "rbf_kernel_matrix": [(1000, 1537, 10), (8192, 8192, 10),
-                              (8192, 8192, 3), (8192, 2000, 3)],
-        "rbf_grad_mu": [(1000, 1537, 10), (8192, 8192, 10), (8192, 8192, 3),
-                        (102400, 8192, 10)],
-        "rbf_nlml_adjoint": [(1537, 1537, 10), (8192, 8192, 10),
-                             (8192, 8192, 3)],
+        "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
+                              (8191, 8191, 10)],
+        "rbf_grad_mu": [(1000, 1537, 10), *fits, (102400, 8192, 10)],
+        "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10)],
     }
     summary = {}
     for name, cases in shapes.items():
@@ -158,16 +208,30 @@ def phase_kernels():
             errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
             err = max(errs)
             rel = max(e / float(w.abs().max()) for e, w in zip(errs, want))
-            reps = 5 if rows * cols > 1 << 26 else 20
-            ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+            bitwise = None
+            if name != "rbf_grad_mu":
+                again = kernel()
+                again = (again,) if isinstance(again, torch.Tensor) else again
+                bitwise = all(torch.equal(a, g) for a, g in zip(again, got))
+                del again
+            ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 20)
+            bound_ms, resource = kernel_bound(name, rows, cols, Q)
             emit(phase="kernels", kernel=name, rows=rows, cols=cols, Q=Q,
                  max_abs_err=err, rel_err=rel, limit=LIMITS[name], ms=ms,
-                 plain_ms=plain_ms)
+                 plain_ms=plain_ms, bound_ms=bound_ms, resource=resource,
+                 share_of_bound=bound_ms / ms, bitwise_repeat=bitwise)
             check(rel <= LIMITS[name], f"{name} at {(rows, cols, Q)}: "
                   f"relative error {rel:.3g} > {LIMITS[name]}")
+            check(bitwise is not False, f"{name} at {(rows, cols, Q)}: two "
+                  "launches on the same inputs differ")
             worst = max(worst, err)
             if (rows, cols, Q) == MAIN_SHAPE:
-                summary[name] = {"ms": ms, "plain_ms": plain_ms}
+                summary[name] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "operations" if resource == "fp32"
+                    else "bytes",
+                    "resource": resource, "share_of_bound": bound_ms / ms,
+                    "library_ms": None, "library_note": NO_LIBRARY[name]}
             del kernel, plain, got, want
         summary[name]["max_abs_err"] = worst
     torch.cuda.empty_cache()

@@ -3,26 +3,29 @@
 ``nvcc`` compiles ``rbf.cu`` for Hopper (``sm_90a``) into a shared library
 with a plain C interface, loaded with :mod:`ctypes`; nothing includes
 PyTorch's headers, so a build takes seconds.  The library goes to
-``build/edrgp_tpu_torch/`` beside the package and is rebuilt only when the
-source is newer than it.  Nothing here runs at import: the first kernel
-launch calls :func:`load`.  A missing toolkit, a failed compile or a failed
-load raises.
+``build/edrgp_tpu_torch/`` beside the package, named after a hash of the
+source and the compiler flags (:func:`library_path`): a changed source or
+flag builds a new library and never loads one built from other code.
+Nothing here runs at import: the first kernel launch calls :func:`load`.  A
+missing toolkit, a failed compile or a failed load raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from pathlib import Path
 
 SOURCE = Path(__file__).with_name("rbf.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "edrgp_tpu_torch"
-LIBRARY = BUILD_DIR / "librbf.so"
 ARCH = "arch=compute_90a,code=sm_90a"
+FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+         "-fPIC", "-Xptxas", "-v")
 
 #: ptxas's report (registers, shared memory, spills) of the last build made by
-#: this process; empty when the library was already up to date.
+#: this process; empty when the library was already built.
 build_log = ""
 
 _lib = None
@@ -43,38 +46,46 @@ def nvcc_path() -> str:
     return nvcc
 
 
+def library_path(source: Path = SOURCE) -> Path:
+    """The library built from ``source`` with :data:`FLAGS`:
+    ``librbf-<first 12 hex digits of the SHA-1 of both>.so``."""
+    digest = hashlib.sha1(source.read_bytes())
+    digest.update("\0".join(FLAGS).encode())
+    return BUILD_DIR / f"librbf-{digest.hexdigest()[:12]}.so"
+
+
 def build() -> Path:
-    """Compile ``rbf.cu`` unless the library is newer; returns its path."""
+    """Compile ``rbf.cu`` unless its library exists; returns its path."""
     global build_log
-    if (LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
+    library = library_path()
+    if library.exists():
+        return library
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(SOURCE)]
+    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(SOURCE)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, LIBRARY)     # atomic: a reader never sees half a file
+        os.replace(tmp, library)     # atomic: a reader never sees half a file
     finally:
         if tmp.exists():
             tmp.unlink()
     build_log = proc.stderr
-    return LIBRARY
+    return library
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.edrgp_rbf_kernel_matrix.argtypes = [p, p, p, p, i, i, i, p]
     lib.edrgp_rbf_grad_mu.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.edrgp_rbf_nlml_adjoint.argtypes = [p, p, p, p, p, i, i, p]
+    lib.edrgp_rbf_nlml_adjoint.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
+                                           p]
+    lib.edrgp_rbf_adjoint_tile.argtypes = []
     for fn in (lib.edrgp_rbf_kernel_matrix, lib.edrgp_rbf_grad_mu,
-               lib.edrgp_rbf_nlml_adjoint):
+               lib.edrgp_rbf_nlml_adjoint, lib.edrgp_rbf_adjoint_tile):
         fn.restype = i
     lib.edrgp_error_string.argtypes = [i]
     lib.edrgp_error_string.restype = ctypes.c_char_p

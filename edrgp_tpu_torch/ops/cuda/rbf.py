@@ -22,6 +22,8 @@ rbf_nlml_adjoint       rbf_nlml_adjoint (pallas_call :262)      NLML backward
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels import sq_dist
@@ -29,13 +31,19 @@ from . import _build
 
 __all__ = ["rbf_kernel_matrix", "rbf_grad_mu", "rbf_nlml_adjoint",
            "rbf_kernel_matrix_plain", "rbf_grad_mu_plain",
-           "rbf_nlml_adjoint_plain", "LAUNCHES", "reset_launches"]
+           "rbf_nlml_adjoint_plain", "adjoint_split", "LAUNCHES",
+           "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"rbf_kernel_matrix": 0, "rbf_grad_mu": 0, "rbf_nlml_adjoint": 0}
 
 #: Rows of the [rows, N] kernel block the plain dμ/dx* holds at once.
 _PLAIN_BLOCK_ELEMS = 1 << 26
+
+#: Blocks per SM the adjoint's column split aims for: at least two waves
+#: of one block per SM.  Each split adds a partial (P, r) per row to write
+#: and to add up again, so more is not better.
+_ADJOINT_BLOCKS_PER_SM = 2
 
 
 def reset_launches() -> None:
@@ -156,8 +164,32 @@ def rbf_grad_mu(Xnew, X, alpha, lengthscale, sigma2):
 
 
 # ---------------------------------------------------------------------------
-# NLML adjoint: P = (W∘K)·Xs [N, Q], r = (W∘K)·1 [N] for a symmetric W
+# NLML adjoint: P = (W∘K)·Xs [N, Q], r = (W∘K)·1 [N]
 # ---------------------------------------------------------------------------
+
+def adjoint_split(N: int, sms: int, tile: int) -> tuple[int, int]:
+    """(splits, cols_per_split) for the adjoint kernel on a card with
+    ``sms`` SMs and the kernel's square ``tile``: the N columns go to
+    ``splits`` ranges of ``cols_per_split`` (a multiple of the tile)
+    columns, the last one ragged, so that the N/tile row tiles times the
+    splits give about ``_ADJOINT_BLOCKS_PER_SM`` blocks per SM.  Every range
+    is non-empty and together they cover [0, N) once."""
+    tiles = max(1, -(-N // tile))
+    want = min(tiles, max(1, -(-_ADJOINT_BLOCKS_PER_SM * sms // tiles)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_tile() -> int:
+    """The adjoint kernel's tile, as the built library states it."""
+    return _build.load().edrgp_rbf_adjoint_tile()
+
 
 def rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2):
     """(P, r) with P = (W∘K)·Xs and r = (W∘K)·1, K = K(Xs, Xs), Xs = X/ℓ."""
@@ -168,23 +200,34 @@ def rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2):
 
 
 def rbf_nlml_adjoint(X, W, lengthscale, sigma2):
-    """(P [N, Q], r [N]) for X [N, Q] unscaled and the [N, N] cotangent W of
-    K; reads W once and recomputes K on the fly.  Rows and columns are not
-    symmetrized: W must be symmetric for the NLML chain rule downstream."""
+    """(P [N, Q], r [N]) for X [N, Q] unscaled and any [N, N] W (the
+    cotangent of K); reads W once and recomputes K on the fly.  Rows and
+    columns are not symmetrized: the NLML chain rule downstream needs a
+    symmetric W."""
     N = X.shape[0]
     if X.ndim != 2 or W.shape != (N, N):
         raise ValueError(f"rbf_nlml_adjoint: need X [N, Q] and W [N, N], "
                          f"got {tuple(X.shape)} and {tuple(W.shape)}")
     if not _on_card(X, W):
         return rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2)
-    Q = X.shape[1]
+    Q, dev = X.shape[1], X.device
     ls = _lengthscale(lengthscale, Q, X)
-    xs = (X.detach() / ls).contiguous()
+    # The scaled rows transposed, [Q, ldx] with 16-byte aligned rows: the
+    # kernel stages a tile's columns from Q contiguous runs.  At least one
+    # row, so that the kernel always has an aligned address to name.
+    ldx = -(-N // 4) * 4
+    xsT = torch.empty((max(Q, 1), ldx), dtype=torch.float32, device=dev)
+    torch.div(X.detach().T, ls[:, None], out=xsT[:Q, :N])
     w = W.detach().contiguous()
-    P = torch.empty_like(xs)
-    r = torch.empty((N,), dtype=torch.float32, device=xs.device)
+    P = torch.empty((N, Q), dtype=torch.float32, device=dev)
+    r = torch.empty((N,), dtype=torch.float32, device=dev)
     if N:
-        s2 = _scalar(sigma2, xs)
-        _launch("rbf_nlml_adjoint", xs.data_ptr(), w.data_ptr(),
-                s2.data_ptr(), P.data_ptr(), r.data_ptr(), N, Q)
+        s2 = _scalar(sigma2, X)
+        splits, cols = adjoint_split(N, _sm_count(dev.index),
+                                     _adjoint_tile())
+        part = torch.empty((splits, N, Q + 1), dtype=torch.float32,
+                           device=dev)
+        _launch("rbf_nlml_adjoint", xsT.data_ptr(), ldx, w.data_ptr(),
+                s2.data_ptr(), P.data_ptr(), r.data_ptr(), part.data_ptr(),
+                N, Q, splits, cols)
     return P, r

@@ -37,11 +37,12 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q", [1, 3, 10, 33])
+@pytest.mark.parametrize("Q", [1, 3, 4, 7, 9, 10, 13, 33, 64, 128])
 def test_cuda_kernels_match_plain(card, Q):
     """Kernel vs plain version on the card; the plain versions use the
     matmul trick, the kernels the direct difference, hence tolerances
-    relative to the largest entry: K 1e-5, G and A 1e-4."""
+    relative to the largest entry: K 1e-5, G and A 1e-4.  Q = 1, 9 and 13
+    run A padded to its next specialisation (3, 10, 16)."""
     g = torch.Generator().manual_seed(Q)
     M, N = 300, 517
     X1 = torch.randn(M, Q, generator=g).to(card)
@@ -60,6 +61,89 @@ def test_cuda_kernels_match_plain(card, Q):
     assert _rel(G, rbf.rbf_grad_mu_plain(X1, X2, alpha, ls, 1.3)) < 1e-4
     P0, r0 = rbf.rbf_nlml_adjoint_plain(X2, W, ls, 1.3)
     assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 9, 33])
+@pytest.mark.parametrize("N", [1, 63, 65, 517, 4097, 4100])
+def test_cuda_kernels_ragged_n(card, N, Q):
+    """K and A at N that straddle the 64-wide tiles and A's column splits
+    (N=4,097 puts one column in the last split on a 132-SM card), in a
+    narrow (Q=7), a padded (Q=9, run as 10) and the wide (Q=33)
+    instantiation of A.  N not a multiple of 4 takes the 4-byte loads and
+    stores; N=4,100 takes A's TMA loads, zero-filled past the edges of W
+    and, at Q=9, past the last coordinate."""
+    g = torch.Generator().manual_seed(N + Q)
+    X = torch.randn(N, Q, generator=g).to(card)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    W = torch.randn(N, N, generator=g).to(card)
+    W = W + W.T
+    K = rbf.rbf_kernel_matrix(X[:N - N // 3] / ls, X / ls, 0.7)
+    P, r = rbf.rbf_nlml_adjoint(X, W, ls, 0.7)
+    torch.cuda.synchronize()
+    assert _rel(K, rbf.rbf_kernel_matrix_plain(X[:N - N // 3] / ls, X / ls,
+                                               0.7)) < 1e-5
+    P0, r0 = rbf.rbf_nlml_adjoint_plain(X, W, ls, 0.7)
+    assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [3, 10, 33])
+def test_cuda_adjoint_any_w(card, Q):
+    """A computes ((W∘K)·Xs, (W∘K)·1) for a W that is not symmetric: rows
+    and columns are not interchangeable."""
+    g = torch.Generator().manual_seed(100 + Q)
+    N = 700
+    X = torch.randn(N, Q, generator=g).to(card)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    W = torch.randn(N, N, generator=g).to(card)
+    W[:, : N // 2] *= 3.0
+    P, r = rbf.rbf_nlml_adjoint(X, W, ls, 1.1)
+    P0, r0 = rbf.rbf_nlml_adjoint_plain(X, W, ls, 1.1)
+    Pt, rt = rbf.rbf_nlml_adjoint_plain(X, W.T.contiguous(), ls, 1.1)
+    torch.cuda.synchronize()
+    assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+    assert _rel(r, rt) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [4, 10, 33])
+def test_cuda_kernels_are_deterministic(card, Q):
+    """Two launches of K, and two of A, on the same inputs agree bit for
+    bit: A adds its column splits in a fixed order, with no atomics."""
+    g = torch.Generator().manual_seed(Q)
+    N = 3000
+    X = torch.randn(N, Q, generator=g).to(card)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    W = torch.randn(N, N, generator=g).to(card)
+    K1 = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.3)
+    K2 = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.3)
+    (P1, r1), (P2, r2) = (rbf.rbf_nlml_adjoint(X, W, ls, 1.3)
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(K1, K2)
+    assert torch.equal(P1, P2) and torch.equal(r1, r2)
+
+
+@pytest.mark.cuda
+def test_cuda_adjoint_q_limit_raises(card):
+    """A's wide instantiation stages all Q rows of its tiles: Q=170 still
+    fits the card's shared memory, Q=200 is refused with an error rather
+    than computed another way, and the refusal leaves no error behind for
+    the next launch."""
+    g = torch.Generator().manual_seed(170)
+    X = torch.randn(200, 200, generator=g).to(card)
+    W = torch.randn(200, 200, generator=g).to(card)
+    ls = torch.full((200,), 9.0, device=card)
+    P, r = rbf.rbf_nlml_adjoint(X[:, :170], W, ls[:170], 1.0)
+    P0, r0 = rbf.rbf_nlml_adjoint_plain(X[:, :170], W, ls[:170], 1.0)
+    torch.cuda.synchronize()
+    assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+    with pytest.raises(RuntimeError, match="rbf_nlml_adjoint launch failed"):
+        rbf.rbf_nlml_adjoint(X, W, ls, 1.0)
+    K = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.0)
+    torch.cuda.synchronize()
+    assert _rel(K, rbf.rbf_kernel_matrix_plain(X / ls, X / ls, 1.0)) < 1e-5
 
 
 @pytest.mark.cuda

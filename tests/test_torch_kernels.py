@@ -94,6 +94,38 @@ def test_shape_mismatch_raises():
         trbf.rbf_nlml_adjoint(torch.zeros(3, 2), torch.zeros(4, 4), 1.0, 1.0)
 
 
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 8192, 10_000])
+def test_adjoint_split_covers_every_column_once(N, sms):
+    """The adjoint kernel's column ranges [s·cols, (s+1)·cols) ∩ [0, N):
+    tile-aligned, none empty, every column in exactly one."""
+    tile = 64
+    splits, cols = trbf.adjoint_split(N, sms, tile)
+    assert splits >= 1 and cols > 0 and cols % tile == 0
+    covered = np.zeros(N, dtype=int)
+    for s in range(splits):
+        lo, hi = s * cols, min((s + 1) * cols, N)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if sms == 132 and N >= 8192:     # at least two waves on an H100
+        assert splits * -(-N // tile) >= 2 * sms
+
+
+def test_library_is_named_after_its_source(tmp_path):
+    """A changed source builds a new library instead of loading a stale
+    one; the same source names the same library.  Needs no nvcc."""
+    src = tmp_path / "rbf.cu"
+    src.write_text("// one\n")
+    first = _build.library_path(src)
+    assert first == _build.library_path(src)
+    assert first.parent == _build.BUILD_DIR
+    assert first.name.startswith("librbf-") and first.suffix == ".so"
+    src.write_text("// two\n")
+    assert _build.library_path(src) != first
+    assert _build.library_path() != first
+
+
 def test_build_raises_without_a_toolkit(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
