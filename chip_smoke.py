@@ -12,8 +12,8 @@ Phases, in order, each printing one JSON line:
    to the plain result's largest entry (limits: K 1e-5, G and A 1e-4), both
    times from CUDA events after a warm-up (σ² a tensor on the card, as the
    main path passes it), the kernel's bound on an H100 with the resource
-   that sets it, the share of that bound the kernel reaches, and for K and
-   A that a second launch gives the same bits;
+   that sets it, the share of that bound the kernel reaches, and that a
+   second launch gives the same bits;
 3. nlml — NLML value+grad at N=10,000, Q=8, RBF-ARD: ms per evaluation
    through the kernels and through the plain autograd backward, and the
    largest relative gradient difference between the two;
@@ -23,7 +23,9 @@ Phases, in order, each printing one JSON line:
    kernels="RBF", kernel_options={"ARD": True}), SVDTransformer(),
    n_components=3).fit(X, y)`` at N=8,192, Q=10 with a planted 3-D
    subspace, 5 float32 restarts, ``max_iters=200``; every kernel must launch
-   in it and the subspace must be recovered (discrepancy < 0.1).
+   in it and the subspace must be recovered (discrepancy < 0.1); then
+   gradients — the first fit's gradient extraction alone at N=8,192,
+   Q=10, and the part of it that kernel G takes.
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
 of bound, launches on the main path; ``library_ms`` is null because no
@@ -80,16 +82,18 @@ def kernel_bound(name, rows, cols, Q):
     """(ms, resource): the least time an H100 could take for the kernel's
     work, the larger of its bytes (each input read once, each output
     written once) over the HBM rate and its fp32 flops over the fp32 peak;
-    resource is "hbm_read", "hbm_write" or "fp32".  Flops per pair: the
-    distance is Q subtractions and Q FMAs (3Q); G and A add Q FMAs for the
-    weighted sum (2Q), and each kernel a few scalar operations around the
-    exp."""
+    resource is "hbm_read", "hbm_write" or "fp32".  Flops per pair: for K
+    and A the distance is Q subtractions and Q FMAs (3Q), for G a dot
+    product of Q FMAs (2Q) beside the rows' and columns' norms (2Q flops a
+    row); G and A add Q FMAs for the weighted sum (2Q), and each kernel a
+    few scalar operations around the exp (for G the norms' sum, an FMA,
+    the weight and the row sum: 5)."""
     if name == "rbf_kernel_matrix":
         read, write = (rows + cols) * Q * 4, rows * cols * 4
         flops = (3 * Q + 2) * rows * cols
     elif name == "rbf_grad_mu":
         read, write = (rows * Q + cols * Q + cols) * 4, rows * Q * 4
-        flops = (5 * Q + 3) * rows * cols
+        flops = (4 * Q + 5) * rows * cols + 2 * Q * (rows + cols)
     else:
         read, write = (rows * cols + rows * Q) * 4, rows * (Q + 1) * 4
         flops = (5 * Q + 4) * rows * cols
@@ -183,15 +187,18 @@ def _kernel_case(name, rows, cols, Q, gen):
 def phase_kernels():
     """Kernel vs plain at a ragged shape and the main path's: N=8,192 at
     each Q of the EDR's fits (10, 7, 4, 3), the held-out cross-kernel, G at
-    M=102,400, and K and A at N=8,191 (N % 4 != 0: 4-byte stores for K,
-    4-byte cp.async loads instead of TMA for A)."""
+    the tall shapes of sparse models' gradients (M=102,400 by N=8,192 and
+    M=1,048,576 by N=512: one column split), and each kernel at N=8,191
+    (N % 4 != 0: 4-byte stores for K, 4-byte cp.async loads instead of TMA
+    for A)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     fits = [(8192, 8192, Q) for Q in (10, 7, 4, 3)]
     shapes = {
         "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
                               (8191, 8191, 10)],
-        "rbf_grad_mu": [(1000, 1537, 10), *fits, (102400, 8192, 10)],
+        "rbf_grad_mu": [(1000, 1537, 10), *fits, (8191, 8191, 10),
+                        (102400, 8192, 10), (1048576, 512, 10)],
         "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10)],
     }
     summary = {}
@@ -208,12 +215,10 @@ def phase_kernels():
             errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
             err = max(errs)
             rel = max(e / float(w.abs().max()) for e, w in zip(errs, want))
-            bitwise = None
-            if name != "rbf_grad_mu":
-                again = kernel()
-                again = (again,) if isinstance(again, torch.Tensor) else again
-                bitwise = all(torch.equal(a, g) for a, g in zip(again, got))
-                del again
+            again = kernel()
+            again = (again,) if isinstance(again, torch.Tensor) else again
+            bitwise = all(torch.equal(a, g) for a, g in zip(again, got))
+            del again
             ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 20)
             bound_ms, resource = kernel_bound(name, rows, cols, Q)
             emit(phase="kernels", kernel=name, rows=rows, cols=cols, Q=Q,
@@ -222,8 +227,8 @@ def phase_kernels():
                  share_of_bound=bound_ms / ms, bitwise_repeat=bitwise)
             check(rel <= LIMITS[name], f"{name} at {(rows, cols, Q)}: "
                   f"relative error {rel:.3g} > {LIMITS[name]}")
-            check(bitwise is not False, f"{name} at {(rows, cols, Q)}: two "
-                  "launches on the same inputs differ")
+            check(bitwise, f"{name} at {(rows, cols, Q)}: two launches on "
+                  "the same inputs differ")
             worst = max(worst, err)
             if (rows, cols, Q) == MAIN_SHAPE:
                 summary[name] = {
@@ -359,7 +364,32 @@ def phase_main_path(device="cuda", N=8192, max_iters=200):
     check(np.isfinite(pred).all() and pred.shape == y_test.shape,
           "bad predictions")
     check(disc < 0.1, f"discrepancy {disc:.3g} >= 0.1")
+    phase_gradients(device, X, y)
     return launches
+
+
+def phase_gradients(device, X, y):
+    """The first EDR fit's gradient extraction (``predictive_gradients`` at
+    M = N = 8,192, Q = 10, at the model's initial hyperparameters): host
+    clock around the first call (it factors the posterior) and a second one
+    (both end in host numpy), and CUDA events around its dμ/dx* alone, which
+    kernel G computes."""
+    from edrgp_tpu_torch.models.state import ExactGPModel
+    from edrgp_tpu_torch.ops import exact
+    from edrgp_tpu_torch.ops.kernels import RBF
+    gp = ExactGPModel(X, y, RBF(X.shape[1], ARD=True), device=device)
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dmu, dvar = gp.predictive_gradients(X)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    alpha = gp._posterior()[1]
+    dmu_ms = cuda_ms(lambda: exact.predict_mean_grad(gp, gp._X, alpha,
+                                                     gp._X), 5)
+    emit(phase="gradients", M=X.shape[0], Q=X.shape[1], first_ms=ms[0],
+         ms=ms[1], dmu_kernel_ms=dmu_ms, dmu_share=dmu_ms / ms[1])
+    check(np.isfinite(dmu).all() and np.isfinite(dvar).all(),
+          "non-finite predictive gradients")
 
 
 def main():

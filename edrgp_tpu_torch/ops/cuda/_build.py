@@ -80,12 +80,15 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.edrgp_rbf_kernel_matrix.argtypes = [p, p, p, p, i, i, i, p]
-    lib.edrgp_rbf_grad_mu.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.edrgp_rbf_grad_mu.argtypes = [p, p, p, p, p, p, p, i, p, i, p, i, i,
+                                      i, i, i, p]
     lib.edrgp_rbf_nlml_adjoint.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
                                            p]
-    lib.edrgp_rbf_adjoint_tile.argtypes = []
+    lib.edrgp_rbf_contract_tile.argtypes = []
+    lib.edrgp_rbf_grad_mu_resident.argtypes = [i]
     for fn in (lib.edrgp_rbf_kernel_matrix, lib.edrgp_rbf_grad_mu,
-               lib.edrgp_rbf_nlml_adjoint, lib.edrgp_rbf_adjoint_tile):
+               lib.edrgp_rbf_nlml_adjoint, lib.edrgp_rbf_contract_tile,
+               lib.edrgp_rbf_grad_mu_resident):
         fn.restype = i
     lib.edrgp_error_string.argtypes = [i]
     lib.edrgp_error_string.restype = ctypes.c_char_p

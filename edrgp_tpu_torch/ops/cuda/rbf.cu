@@ -12,18 +12,20 @@
 //     direct form is cheap and does not cancel;
 //   * the sequential (i, j) grid with a pl.when(j == 0) revisit becomes a
 //     loop over column tiles inside a block; where one row tile per block
-//     cannot fill the card (A), the columns are split over blocks and the
+//     cannot fill the card (A, G), the columns are split over blocks and the
 //     per-split partial sums are added in a fixed order by a second kernel:
 //     no atomics, so two launches on the same inputs agree bit for bit;
 //   * ragged edges are masked (or zero-filled by TMA), not padded;
 //   * no tensor cores: Q is rarely a multiple of 8, and fp32 accuracy on
-//     them would need a 3xTF32 split (see A below).
+//     them would need a 3xTF32 split (see the contraction below).
 // Any Q works as long as the shared-memory tiles fit; a launch whose tiles
 // do not fit is refused with cudaErrorInvalidValue.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -209,96 +211,44 @@ __global__ void __launch_bounds__(K_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// G: out[m, :] = sum_i alpha_i k(xs_m, xt_i) (xt_i - xs_m) in scaled
-// coordinates (the wrapper divides by the lengthscale).  Replaces
-// rbf_grad_mu (edrgp_tpu/ops/pallas/rbf.py:147).  Bound by shared-memory
-// traffic (about 6Q accesses per (m, i) pair); device-memory traffic is
-// O((M + N) Q) because the [M, N] cross-kernel never leaves the SM.  One
-// thread owns one test row: its scaled row and its Q sums sit in shared
-// memory laid out [Q][G_ROWS] (conflict-free), and the block walks all
-// training rows in staged tiles of G_TN rows, read by every thread at the
-// same address (broadcast).  Accumulating w * (xt - xs) directly, instead of
-// the TPU kernel's sum(w xt) - xs sum(w), avoids a cancellation.
-// ---------------------------------------------------------------------------
-constexpr int G_ROWS = 64;
-constexpr int G_TN = 64;
-
-__global__ void gradmu_kernel(const float* __restrict__ xs,
-                              const float* __restrict__ xt,
-                              const float* __restrict__ alpha,
-                              const float* __restrict__ sigma2,
-                              float* __restrict__ out, int M, int N, int Q) {
-  extern __shared__ float smem[];
-  float* xs_s = smem;                  // [Q][G_ROWS]
-  float* acc_s = xs_s + Q * G_ROWS;    // [Q][G_ROWS]
-  float* xt_s = acc_s + Q * G_ROWS;    // [G_TN][Q]
-  float* al_s = xt_s + G_TN * Q;       // [G_TN]
-  const int t = threadIdx.x;
-  const int m = blockIdx.x * G_ROWS + t;
-  const bool live = m < M;
-  for (int q = 0; q < Q; ++q) {
-    xs_s[q * G_ROWS + t] = live ? xs[(size_t)m * Q + q] : 0.f;
-    acc_s[q * G_ROWS + t] = 0.f;
-  }
-  const float s2 = *sigma2;
-
-  for (int j0 = 0; j0 < N; j0 += G_TN) {
-    const int nt = min(G_TN, N - j0);
-    __syncthreads();
-    for (int e = t; e < nt * Q; e += G_ROWS) xt_s[e] = xt[(size_t)j0 * Q + e];
-    for (int e = t; e < nt; e += G_ROWS) al_s[e] = alpha[j0 + e];
-    __syncthreads();
-    for (int i = 0; i < nt; ++i) {
-      const float* xi = xt_s + i * Q;
-      float sq = 0.f;
-      for (int q = 0; q < Q; ++q) {
-        const float d = xi[q] - xs_s[q * G_ROWS + t];
-        sq = fmaf(d, d, sq);
-      }
-      const float w = s2 * expf(-0.5f * sq) * al_s[i];
-      for (int q = 0; q < Q; ++q) {
-        float* a = acc_s + q * G_ROWS + t;
-        *a = fmaf(w, xi[q] - xs_s[q * G_ROWS + t], *a);
-      }
-    }
-  }
-  if (live)
-    for (int q = 0; q < Q; ++q) out[(size_t)m * Q + q] = acc_s[q * G_ROWS + t];
-}
-
-// ---------------------------------------------------------------------------
-// A: with Aij = W[i, j] * sigma2 * exp(-0.5 ||xs_i - xs_j||^2),
-// P[i, :] = sum_j Aij xs_j and r[i] = sum_j Aij, for any W.  Replaces
-// rbf_nlml_adjoint (edrgp_tpu/ops/pallas/rbf.py:236, pallas_call at :262).
-// Its floor on the H100 is reading the N*N*4 bytes of W once (0.080 ms at
-// 8192^2 for 3.35 TB/s; K is recomputed per pair and never stored), but at
-// Q >= 7 the fp32 instructions bound it: about 3Q+3 per pair (Q subtractions
-// and Q FMAs for the distance, a multiply and an exp2, a multiply by W, an
-// add for r, Q FMAs for P), 33 at Q=10: more instruction slots than 67
-// TFLOP/s suggests, because the subtractions count one flop each.  Design:
-//   * a block owns A_BM rows and walks a range of columns in A_BN-wide
+// The contraction shared by A and G.  With rows x_i (i < M) and columns x_j
+// (j < N) in scaled coordinates and a weight w_ij,
+//   a_ij = w_ij exp(-0.5 ||x_i - x_j||^2),
+//   P[i, :] = sum_j a_ij x_j,   r[i] = sum_j a_ij,
+// the constant sigma2 applied afterwards.  A takes rows = columns = X / l and
+// streams w_ij = W[i, j] (HAS_W); G takes rows Xnew / l, columns X / l and
+// w_ij = alpha_j.  A pair costs A about 3Q+3 fp32 instructions (Q
+// subtractions and Q FMAs for the distance, a multiply and an exp2, the
+// weight, an add for r, Q FMAs for P), so past a few Q the instruction issue
+// bounds the loop.  G, which streams no W, forms the distance as
+// |x_i|^2 + |x_j|^2 - 2 x_i.x_j instead (the TPU kernel's form), from norms
+// staged with its inputs: 2Q+5 a pair.  Design:
+//   * a block owns C_BM rows and walks a range of columns in C_BN-wide
 //     tiles; each thread owns a 4 x 4 patch of each tile (rows 4ty..,
 //     columns 4tx..) and keeps the 4 x QB partial sums of P and the 4 of r
 //     in registers, the kernel being specialised on a compile-time QB >= Q
 //     (zero-padded coordinates add nothing).  Per tile it forms the 16
-//     distances coordinate by coordinate (one float4 of x_i and one of x_j
-//     from shared memory per 16 FMA pairs), then the 16 weights, then the
-//     P update (one float4 of x_j per 16 FMAs): 16 independent chains;
-//   * W and x_j tiles arrive by TMA into a ring of 4 slots: one
-//     thread starts two boxes per tile, two tiles ahead, counted on
-//     the slot's `full` mbarrier; each warp arrives on the slot's `empty`
-//     mbarrier when done with it.  No block-wide barrier in the loop, and no
-//     load instructions in the compute warps.  Every W element is read from
-//     device memory once; TMA zero-fills past the edges.  Rows of W that are
-//     not 16-byte aligned (N % 4 != 0), which TMA cannot describe, are
-//     copied by all threads with 4-byte cp.async into the same ring;
-//   * N/64 row tiles (128 at N=8192) cannot fill 132 SMs, so blockIdx.y
-//     splits the columns into `splits` ranges of `cols_per_split` columns
-//     (chosen by the wrapper from N and the SM count for at least two
-//     waves); each block writes its rows' partial (P, r) to
-//     part[split][row][0..Q], after a shuffle reduction over the 16 threads
-//     that share a row, and adjoint_reduce_kernel adds the splits in order
-//     and scales by sigma2;
+//     distances (or dot products) coordinate by coordinate (one float4 of
+//     x_i and one of x_j from shared memory per 16 pairs), then the 16
+//     weights, then the P update (one float4 of x_j per 16 FMAs): 16
+//     independent chains;
+//   * x_j tiles (and for A the W tiles) arrive by TMA into a ring of
+//     shared-memory slots: one thread starts the boxes of a tile ahead of
+//     use, counted on the slot's `full` mbarrier; each warp arrives on the
+//     slot's `empty` mbarrier when done with it.  No block-wide barrier in
+//     the loop, and no load instructions for the tiles in the compute warps.
+//     TMA zero-fills past the edges.  Where TMA cannot describe the tiles
+//     (A's W rows when N % 4 != 0, more than 256 staged coordinates), all
+//     threads copy them with cp.async into the same ring.  G's weights and
+//     column norms are one float4 each per thread and tile, read through
+//     the L1;
+//   * where the row tiles cannot fill the card (M/64 = 128 at M = 8192 on
+//     132 SMs), blockIdx.y splits the columns into `splits` ranges of
+//     `cols_per_split` columns (rbf.column_split plans them from M, N and
+//     a number of blocks per SM); each block writes its rows'
+//     partial (P, r) to part[split][row][0..Q], after a shuffle reduction
+//     over the 16 threads that share a row, and a second kernel adds the
+//     splits in order: no atomics, so two launches agree bit for bit;
 //   * QB is 3, 4, 7, 10 (the EDR's fits) or 16, any other Q up to 16
 //     running padded to the next; Q above 16 takes the WIDE instantiation:
 //     the distance looped over all Q, and blockIdx.z choosing which 16
@@ -306,129 +256,174 @@ __global__ void gradmu_kernel(const float* __restrict__ xs,
 //   * no tensor cores: keeping fp32 accuracy on them needs a 3xTF32 split,
 //     and the products here are 4 x 4 x Q per thread.
 // ---------------------------------------------------------------------------
-constexpr int A_BM = 64;        // rows per block: 16 row groups x A_TM
-constexpr int A_BN = 64;        // columns per tile: 16 threads x A_TN
-constexpr int A_TM = 4;
-constexpr int A_TN = 4;
-constexpr int A_THREADS = 256;
-constexpr int A_WARPS = A_THREADS / 32;
-constexpr int A_QMAX = 16;      // largest specialisation of Q
-static_assert(A_BM == A_BN, "rbf.adjoint_split plans with one tile size");
+constexpr int C_BM = 64;        // rows per block: 16 row groups x C_TM
+constexpr int C_BN = 64;        // columns per tile: 16 threads x C_TN
+constexpr int C_TM = 4;
+constexpr int C_TN = 4;
+constexpr int C_THREADS = 256;
+constexpr int C_WARPS = C_THREADS / 32;
+constexpr int C_QMAX = 16;      // largest specialisation of Q
+constexpr int TMA_BOX_MAX = 256;  // longest side of a TMA box
+static_assert(C_BM == C_BN, "rbf.column_split plans with one tile size");
 
-// Ring slots; a block runs slots - 2 tiles ahead.  WIDE stages all Q rows of
-// x_j per slot, so it keeps one slot fewer and takes Q up to 178.
-__host__ __device__ constexpr int adjoint_stages(bool wide) {
-  return wide ? 3 : 4;
+// Ring slots.  WIDE stages all Q rows of x_j per slot, so it keeps fewer:
+// 3 beside A's W tiles (Q up to 178), 2 for G (Q up to 302).
+__host__ __device__ constexpr int ring_stages(bool wide, bool has_w) {
+  return !wide ? 4 : has_w ? 3 : 2;
 }
 
-size_t adjoint_smem(int qs, bool wide) {
+// Tiles a block loads ahead of the one it computes.  Two slots stay free, so
+// the loading thread seldom waits for the slowest warp; a 2-slot ring keeps
+// one.
+__host__ __device__ constexpr int ring_ahead(int stages) {
+  return stages > 2 ? stages - 2 : 1;
+}
+
+size_t contract_smem(int qs, bool wide, bool has_w) {
+  const size_t w = has_w ? (size_t)C_BM * C_BN : 0;
   return sizeof(float) *
-         ((size_t)adjoint_stages(wide) * (A_BM * A_BN + (size_t)qs * A_BN) +
-          (size_t)qs * A_BM);
+         ((size_t)ring_stages(wide, has_w) * (w + (size_t)qs * C_BN) +
+          (size_t)qs * C_BM);
 }
 
-template <int QB, bool WIDE, bool TMA>
-__global__ void __launch_bounds__(A_THREADS)
-    adjoint_kernel(const __grid_constant__ CUtensorMap w_map,
-                   const __grid_constant__ CUtensorMap x_map,
-                   const float* __restrict__ xsT, int ldx,
-                   const float* __restrict__ W, float* __restrict__ part,
-                   int N, int Q, int cols_per_split) {
-  constexpr int S = adjoint_stages(WIDE);
-  extern __shared__ __align__(128) float adj_smem[];
+// xrT and xcT hold the scaled rows and columns transposed, [Q][ldr] and
+// [Q][ldc] with 16-byte aligned rows; wgt is W [M][N] (HAS_W) or, for G,
+// [2][ldc]: alpha, then -log2(e)/2 |x_j|^2, both zero past N.
+template <int QB, bool WIDE, bool TMA, bool HAS_W>
+__global__ void __launch_bounds__(C_THREADS)
+    contract_kernel(const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap x_map,
+                    const float* __restrict__ xrT, int ldr,
+                    const float* __restrict__ xcT, int ldc,
+                    const float* __restrict__ wgt, float* __restrict__ part,
+                    int M, int N, int Q, int cols_per_split) {
+  constexpr int S = ring_stages(WIDE, HAS_W);
+  constexpr int AHEAD = ring_ahead(S);
+  constexpr int WT = HAS_W ? C_BM * C_BN : 0;   // W floats per slot
+  extern __shared__ __align__(128) float c_smem[];
   __shared__ __align__(8) uint64_t full[S], empty[S];
   const int qs = WIDE ? Q : QB;                 // staged coordinates
-  float* w_s = adj_smem;                        // [S][A_BM][A_BN]
-  float* xj_s = w_s + S * A_BM * A_BN;          // [S][qs][A_BN]
-  float* xi_s = xj_s + S * qs * A_BN;           // [qs][A_BM]
+  float* w_s = c_smem;                          // [S][C_BM][C_BN], A only
+  float* xj_s = w_s + S * WT;                   // [S][qs][C_BN]
+  float* xi_s = xj_s + S * qs * C_BN;           // [qs][C_BM]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * A_BM;
+  const int row0 = blockIdx.x * C_BM;
   const int c_begin = blockIdx.y * cols_per_split;
   const int c_end = min(c_begin + cols_per_split, N);
-  const int ntiles = c_end > c_begin ? (c_end - c_begin + A_BN - 1) / A_BN : 0;
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + C_BN - 1) / C_BN : 0;
   const int q0 = WIDE ? blockIdx.z * QB : 0;    // first column of P summed
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], TMA ? 1 : A_THREADS);
-      mbar_init(&empty[s], A_WARPS);
+      mbar_init(&full[s], TMA ? 1 : C_THREADS);
+      mbar_init(&empty[s], C_WARPS);
     }
     fence_mbar_init();
   }
-  // The block's rows x_i, [qs][A_BM], zero past N and past Q.
-  for (int e = tid; e < qs * A_BM; e += A_THREADS) {
-    const int q = e / A_BM, r = e % A_BM;
-    xi_s[e] = (row0 + r < N && q < Q) ? xsT[(size_t)q * ldx + row0 + r] : 0.f;
+  // The block's rows x_i, [qs][C_BM], zero past M and past Q.
+  for (int e = tid; e < qs * C_BM; e += C_THREADS) {
+    const int q = e / C_BM, r = e % C_BM;
+    xi_s[e] = (row0 + r < M && q < Q) ? xrT[(size_t)q * ldr + row0 + r] : 0.f;
   }
   __syncthreads();
+  // G: -log2(e)/2 |x_i|^2 of the thread's 4 rows.
+  float ni[C_TM] = {};
+  if constexpr (!HAS_W) {
+#pragma unroll
+    for (int m = 0; m < C_TM; ++m) {
+      for (int q = 0; q < qs; ++q) {
+        const float v = xi_s[q * C_BM + ty * C_TM + m];
+        ni[m] = fmaf(v, v, ni[m]);
+      }
+      ni[m] *= -kHalfLog2e;
+    }
+  }
 
-  // Tile u (columns c_begin + u A_BN ..) into slot u % S, once the
-  // tile that held the slot before is consumed; full[slot] completes when
-  // its bytes have landed.  W rows 16-byte aligned: two TMA boxes started by
-  // one thread.  Otherwise every thread copies 4-byte W elements and
-  // 16-byte runs of x_j with cp.async.
+  // Tile u (columns c_begin + u C_BN ..) into slot u % S, once the tile
+  // that held the slot before is consumed; full[slot] completes when its
+  // bytes have landed.  TMA: the boxes started by one thread.  Otherwise
+  // every thread copies 4-byte W elements and 16-byte runs of x_j with
+  // cp.async.
   auto fetch = [&](int u) {
-    const int s = u % S, c0 = c_begin + u * A_BN;
-    float* wb = w_s + s * A_BM * A_BN;
-    float* xb = xj_s + s * qs * A_BN;
+    const int s = u % S, c0 = c_begin + u * C_BN;
+    float* wb = w_s + s * WT;
+    float* xb = xj_s + s * qs * C_BN;
     if constexpr (TMA) {
       if (tid != 0) return;
       if (u >= S) mbar_wait(&empty[s], (u / S - 1) & 1);
-      mbar_expect_tx(&full[s], (int)sizeof(float) * (A_BM + qs) * A_BN);
-      tma_load_2d(wb, &w_map, c0, row0, &full[s]);
+      mbar_expect_tx(&full[s],
+                     (int)sizeof(float) * (WT / C_BN + qs) * C_BN);
+      if constexpr (HAS_W) tma_load_2d(wb, &w_map, c0, row0, &full[s]);
       tma_load_2d(xb, &x_map, c0, 0, &full[s]);
     } else {
       if (u >= S) mbar_wait(&empty[s], (u / S - 1) & 1);
-      for (int e = tid; e < A_BM * A_BN; e += A_THREADS) {
-        const int r = e / A_BN, c = e % A_BN;
-        const bool live = row0 + r < N && c0 + c < N;
-        cp_async4(wb + e, live ? W + (size_t)(row0 + r) * N + c0 + c : W,
-                  live);
+      if constexpr (HAS_W) {
+        for (int e = tid; e < C_BM * C_BN; e += C_THREADS) {
+          const int r = e / C_BN, c = e % C_BN;
+          const bool live = row0 + r < M && c0 + c < N;
+          cp_async4(wb + e, live ? wgt + (size_t)(row0 + r) * N + c0 + c : wgt,
+                    live);
+        }
       }
-      for (int e = tid; e < qs * (A_BN / 4); e += A_THREADS) {
-        const int q = e / (A_BN / 4), c = 4 * (e % (A_BN / 4));
+      for (int e = tid; e < qs * (C_BN / 4); e += C_THREADS) {
+        const int q = e / (C_BN / 4), c = 4 * (e % (C_BN / 4));
         const int n = q < Q ? min(max(N - (c0 + c), 0), 4) : 0;
-        cp_async16(xb + q * A_BN + c, xsT + (n ? (size_t)q * ldx + c0 + c : 0),
+        cp_async16(xb + q * C_BN + c, xcT + (n ? (size_t)q * ldc + c0 + c : 0),
                    4 * n);
       }
       cp_async_arrive(&full[s]);
     }
   };
 
-  float p[A_TM][QB], rs[A_TM];
+  float p[C_TM][QB], rs[C_TM];
 #pragma unroll
-  for (int m = 0; m < A_TM; ++m) {
+  for (int m = 0; m < C_TM; ++m) {
     rs[m] = 0.f;
 #pragma unroll
     for (int q = 0; q < QB; ++q) p[m][q] = 0.f;
   }
 
-  for (int u = 0; u < S - 2 && u < ntiles; ++u) fetch(u);
+  for (int u = 0; u < AHEAD && u < ntiles; ++u) fetch(u);
   for (int t = 0; t < ntiles; ++t) {
-    if (t + S - 2 < ntiles) fetch(t + S - 2);
+    if (t + AHEAD < ntiles) fetch(t + AHEAD);
     const int s = t % S;
+    // G: alpha and the norms of the thread's 4 columns, loaded before the
+    // wait.
+    float4 al = make_float4(0.f, 0.f, 0.f, 0.f), nj = al;
+    if constexpr (!HAS_W) {
+      const int c = c_begin + t * C_BN + tx * C_TN;
+      if (c < N) {
+        al = __ldg(reinterpret_cast<const float4*>(wgt + c));
+        nj = __ldg(reinterpret_cast<const float4*>(wgt + ldc + c));
+      }
+    }
     mbar_wait(&full[s], (t / S) & 1);
 
-    const float* wb = w_s + s * A_BM * A_BN;
-    const float* xb = xj_s + s * qs * A_BN + tx * A_TN;
-    // 1. the 4 x 4 squared distances, one coordinate at a time.
-    float a[A_TM][A_TN];
+    const float* wb = w_s + s * WT;
+    const float* xb = xj_s + s * qs * C_BN + tx * C_TN;
+    // 1. the 4 x 4 squared distances (G: dot products), one coordinate at a
+    // time.
+    float a[C_TM][C_TN];
 #pragma unroll
-    for (int m = 0; m < A_TM; ++m)
+    for (int m = 0; m < C_TM; ++m)
 #pragma unroll
-      for (int n = 0; n < A_TN; ++n) a[m][n] = 0.f;
+      for (int n = 0; n < C_TN; ++n) a[m][n] = 0.f;
     auto dist = [&](int q) {
-      const float4 v = *reinterpret_cast<const float4*>(xb + q * A_BN);
+      const float4 v = *reinterpret_cast<const float4*>(xb + q * C_BN);
       const float4 u =
-          *reinterpret_cast<const float4*>(xi_s + q * A_BM + ty * A_TM);
-      const float xj[A_TN] = {v.x, v.y, v.z, v.w};
-      const float xr[A_TM] = {u.x, u.y, u.z, u.w};
+          *reinterpret_cast<const float4*>(xi_s + q * C_BM + ty * C_TM);
+      const float xj[C_TN] = {v.x, v.y, v.z, v.w};
+      const float xr[C_TM] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int m = 0; m < A_TM; ++m)
+      for (int m = 0; m < C_TM; ++m)
 #pragma unroll
-        for (int n = 0; n < A_TN; ++n) {
-          const float d = xr[m] - xj[n];
-          a[m][n] = fmaf(d, d, a[m][n]);
+        for (int n = 0; n < C_TN; ++n) {
+          if constexpr (HAS_W) {
+            const float d = xr[m] - xj[n];
+            a[m][n] = fmaf(d, d, a[m][n]);
+          } else {
+            a[m][n] = fmaf(xr[m], xj[n], a[m][n]);
+          }
         }
     };
     // Unrolled by two, not fully: fewer loads run ahead, so fewer registers
@@ -440,15 +435,20 @@ __global__ void __launch_bounds__(A_THREADS)
 #pragma unroll 2
       for (int q = 0; q < QB; ++q) dist(q);
     }
-    // 2. the weights W_ij k_ij, and their row sums.
+    // 2. the weights w_ij k_ij, and their row sums.
 #pragma unroll
-    for (int m = 0; m < A_TM; ++m) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          wb + (ty * A_TM + m) * A_BN + tx * A_TN);
-      const float w[A_TN] = {v.x, v.y, v.z, v.w};
+    for (int m = 0; m < C_TM; ++m) {
+      const float4 v =
+          HAS_W ? *reinterpret_cast<const float4*>(
+                      wb + (ty * C_TM + m) * C_BN + tx * C_TN)
+                : al;
+      const float w[C_TN] = {v.x, v.y, v.z, v.w};
+      const float nn[C_TN] = {nj.x, nj.y, nj.z, nj.w};
 #pragma unroll
-      for (int n = 0; n < A_TN; ++n) {
-        a[m][n] = w[n] * fast_exp2(-kHalfLog2e * a[m][n]);
+      for (int n = 0; n < C_TN; ++n) {
+        const float e = HAS_W ? -kHalfLog2e * a[m][n]
+                              : fmaf(2.f * kHalfLog2e, a[m][n], ni[m] + nn[n]);
+        a[m][n] = w[n] * fast_exp2(e);
         rs[m] += a[m][n];
       }
     }
@@ -457,12 +457,12 @@ __global__ void __launch_bounds__(A_THREADS)
     for (int q = 0; q < QB; ++q) {
       if (WIDE && q0 + q >= Q) break;
       const float4 v =
-          *reinterpret_cast<const float4*>(xb + (q0 + q) * A_BN);
-      const float xj[A_TN] = {v.x, v.y, v.z, v.w};
+          *reinterpret_cast<const float4*>(xb + (q0 + q) * C_BN);
+      const float xj[C_TN] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int m = 0; m < A_TM; ++m)
+      for (int m = 0; m < C_TM; ++m)
 #pragma unroll
-        for (int n = 0; n < A_TN; ++n) p[m][q] = fmaf(a[m][n], xj[n], p[m][q]);
+        for (int n = 0; n < C_TN; ++n) p[m][q] = fmaf(a[m][n], xj[n], p[m][q]);
     }
     __syncwarp();
     if (tid % 32 == 0) mbar_arrive(&empty[s]);
@@ -470,16 +470,16 @@ __global__ void __launch_bounds__(A_THREADS)
 
   // Sum each row's partials over the 16 threads (tx) that share it, then
   // spread the stores over those threads.
-  float* out = part + (size_t)blockIdx.y * N * (Q + 1);
+  float* out = part + (size_t)blockIdx.y * M * (Q + 1);
 #pragma unroll
-  for (int m = 0; m < A_TM; ++m) {
-    const int i = row0 + ty * A_TM + m;
+  for (int m = 0; m < C_TM; ++m) {
+    const int i = row0 + ty * C_TM + m;
 #pragma unroll
     for (int k = 0; k <= QB; ++k) {
       float v = k < QB ? p[m][k] : rs[m];
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (i >= N || tx != k % 16) continue;
+      if (i >= M || tx != k % 16) continue;
       if (k < QB) {
         if (q0 + k < Q) out[(size_t)i * (Q + 1) + q0 + k] = v;
       } else if (q0 == 0) {
@@ -488,6 +488,19 @@ __global__ void __launch_bounds__(A_THREADS)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// A: with Aij = W[i, j] * sigma2 * exp(-0.5 ||xs_i - xs_j||^2),
+// P[i, :] = sum_j Aij xs_j and r[i] = sum_j Aij, for any W.  Replaces
+// rbf_nlml_adjoint (edrgp_tpu/ops/pallas/rbf.py:236, pallas_call at :262).
+// Its floor on the H100 is reading the N*N*4 bytes of W once (0.080 ms at
+// 8192^2 for 3.35 TB/s; K is recomputed per pair and never stored), but at
+// Q >= 7 the contraction's fp32 instructions bound it: 33 a pair at Q=10,
+// more instruction slots than 67 TFLOP/s suggests, because the subtractions
+// count one flop each.  It is the contraction with W streamed through the
+// ring beside x_j; its second pass scales the ordered sum of the splits by
+// sigma2.
+// ---------------------------------------------------------------------------
 
 // P[i, q] = sigma2 * sum_s part[s, i, q], r[i] = sigma2 * sum_s part[s, i, Q]
 // with the splits added in order.
@@ -511,11 +524,91 @@ __global__ void adjoint_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-size_t gradmu_smem(int Q) {
-  return sizeof(float) * ((size_t)2 * Q * G_ROWS + (size_t)G_TN * Q + G_TN);
+// ---------------------------------------------------------------------------
+// G: out[m, :] = sigma2 sum_i alpha_i k(xs_m, xs_i) (xs_i - xs_m) / l, the
+// gradient of the posterior mean at the M test rows.  Replaces rbf_grad_mu
+// (edrgp_tpu/ops/pallas/rbf.py:149, pallas_call at :172) in its own form:
+// (P[m] - xs_m r[m]) / l from the contraction with rows Xnew / l, columns
+// X / l and w_mi = alpha_i, the distances from norms and dot products as
+// the TPU kernel forms them.  Its floor on the H100 is fp32 work, (4Q+5)
+// flops a pair in that form, 0.045 ms at M = N = 8192, Q = 10 for 67
+// TFLOP/s, against (M + N) Q floats of input; the [M, N] weights never
+// leave the SM.  So G is the contraction with no W: nothing but x_j in the
+// ring, alpha and the column norms read as one float4 each a thread and
+// tile, and only 2 ring slots when WIDE, so that Q reaches 302.  The column
+// splits go through part[] as for A, planned for one wave of the blocks an
+// SM holds at once (a single split once the row tiles fill it), and
+// gradmu_finish_kernel adds them in order and forms sigma2 (P - xs r) / l in
+// the same pass.  Both the difference and the norms cancel when the data
+// sit far from the origin relative to l, so gradmu_stage_kernel centres
+// both row sets on the first training row as it scales and transposes them
+// (distances do not change): P, xs r and the norms then stay of the size of
+// the data's spread.
+// ---------------------------------------------------------------------------
+
+// The contraction's inputs for G, one thread per row: xrT[q][i] =
+// (Xnew[i][q] - X[0][q]) / l_q for i < M; for j < N, xcT[q][j] =
+// (X[j][q] - X[0][q]) / l_q, xcT[Q][j] = alpha_j and xcT[Q + 1][j] =
+// -log2(e)/2 sum_q xcT[q][j]^2; zero for N <= j < ldc.
+__global__ void gradmu_stage_kernel(const float* __restrict__ Xnew,
+                                    const float* __restrict__ X,
+                                    const float* __restrict__ alpha,
+                                    const float* __restrict__ ls,
+                                    float* __restrict__ xrT, int ldr,
+                                    float* __restrict__ xcT, int ldc, int M,
+                                    int N, int Q) {
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < (size_t)M + ldc; t += (size_t)gridDim.x * blockDim.x) {
+    const bool row = t < (size_t)M;
+    const size_t j = row ? t : t - M;
+    const bool live = row || j < (size_t)N;
+    const float* x = (row ? Xnew : X) + j * Q;
+    float* out = row ? xrT + j : xcT + j;
+    const int ld = row ? ldr : ldc;
+    float n2 = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      const float v = live ? (x[q] - (N ? X[q] : 0.f)) / ls[q] : 0.f;
+      out[(size_t)q * ld] = v;
+      n2 = fmaf(v, v, n2);
+    }
+    if (!row) {
+      out[(size_t)Q * ld] = live ? alpha[j] : 0.f;
+      out[(size_t)(Q + 1) * ld] = -kHalfLog2e * n2;
+    }
+  }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when needed;
+// G[i, q] = sigma2 (sum_s part[s, i, q] - xs[i, q] sum_s part[s, i, Q]) / l_q
+// with the splits added in order; xs is read from the rows' buffer xrT.
+__global__ void gradmu_finish_kernel(const float* __restrict__ part,
+                                     const float* __restrict__ xrT, int ldr,
+                                     const float* __restrict__ ls,
+                                     const float* __restrict__ sigma2,
+                                     float* __restrict__ G, int M, int Q,
+                                     int splits) {
+  const size_t total = (size_t)M * Q, stride = (size_t)M * (Q + 1);
+  const float s2 = *sigma2;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t i = e / Q;
+    const int k = (int)(e % Q);
+    const float* pi = part + i * (Q + 1);
+    float v = 0.f, r = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      v += pi[s * stride + k];
+      r += pi[s * stride + Q];
+    }
+    G[e] = s2 * (v - xrT[(size_t)k * ldr + i] * r) / ls[k];
+  }
+}
+
+// Blocks of 256 threads for an elementwise pass over `total` elements.
+int pass_blocks(size_t total) {
+  return (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+}
+
+// Opt a kernel into more than 48 KB of shared memory (static and dynamic
+// together: the default's limit) when needed;
 // cudaErrorInvalidValue when its static and dynamic shared memory together
 // exceed what a block may have.  A failed call leaves no error behind for
 // the next launch's cudaGetLastError to find.
@@ -530,7 +623,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess && bytes + attr.sharedSizeBytes > (size_t)limit)
     return cudaErrorInvalidValue;
-  if (err == cudaSuccess && bytes > 48 * 1024)
+  if (err == cudaSuccess && bytes + attr.sharedSizeBytes > 48 * 1024)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
@@ -579,40 +672,102 @@ cudaError_t tensor_map(CUtensorMap* map, const float* base, int rows,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int QB, bool WIDE, bool TMA>
-cudaError_t launch_adjoint_as(const float* xsT, int ldx, const float* W,
-                              float* part, int N, int Q, int splits,
-                              int cols_per_split, cudaStream_t stream) {
-  const int qs = WIDE ? Q : QB;
+struct ContractArgs {
+  const float* xrT;
+  int ldr;
+  const float* xcT;
+  int ldc;
+  const float* wgt;   // W (A) or alpha (G)
+  float* part;
+  int M, N, Q, splits, cols_per_split;
+  cudaStream_t stream;
+};
+
+template <int QB, bool WIDE, bool TMA, bool HAS_W>
+cudaError_t launch_contract_as(const ContractArgs& a) {
+  const int qs = WIDE ? a.Q : QB;
   CUtensorMap w_map = {}, x_map = {};
   cudaError_t err;
   if constexpr (TMA) {
-    err = tensor_map(&w_map, W, N, N, N, A_BM, A_BN);
-    if (err != cudaSuccess) return err;
-    err = tensor_map(&x_map, xsT, Q, N, ldx, qs, A_BN);
+    if constexpr (HAS_W) {
+      err = tensor_map(&w_map, a.wgt, a.M, a.N, a.N, C_BM, C_BN);
+      if (err != cudaSuccess) return err;
+    }
+    err = tensor_map(&x_map, a.xcT, a.Q, a.N, a.ldc, qs, C_BN);
     if (err != cudaSuccess) return err;
   }
-  const size_t smem = adjoint_smem(qs, WIDE);
-  err = allow_smem(adjoint_kernel<QB, WIDE, TMA>, smem);
+  const size_t smem = contract_smem(qs, WIDE, HAS_W);
+  err = allow_smem(contract_kernel<QB, WIDE, TMA, HAS_W>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + A_BM - 1) / A_BM, splits,
-                  WIDE ? (Q + QB - 1) / QB : 1);
-  adjoint_kernel<QB, WIDE, TMA><<<grid, A_THREADS, smem, stream>>>(
-      w_map, x_map, xsT, ldx, W, part, N, Q, cols_per_split);
+  const dim3 grid((a.M + C_BM - 1) / C_BM, a.splits,
+                  WIDE ? (a.Q + QB - 1) / QB : 1);
+  contract_kernel<QB, WIDE, TMA, HAS_W><<<grid, C_THREADS, smem, a.stream>>>(
+      w_map, x_map, a.xrT, a.ldr, a.xcT, a.ldc, a.wgt, a.part, a.M, a.N, a.Q,
+      a.cols_per_split);
   return cudaGetLastError();
 }
 
-// TMA needs 16-byte aligned rows (N % 4 == 0) and at least one coordinate.
-template <int QB, bool WIDE>
-cudaError_t launch_adjoint(const float* xsT, int ldx, const float* W,
-                           float* part, int N, int Q, int splits,
-                           int cols_per_split, cudaStream_t stream) {
-  if (N % 4 == 0 && Q > 0 && (uintptr_t)W % 16 == 0 &&
-      (uintptr_t)xsT % 16 == 0 && ldx % 4 == 0)
-    return launch_adjoint_as<QB, WIDE, true>(xsT, ldx, W, part, N, Q, splits,
-                                             cols_per_split, stream);
-  return launch_adjoint_as<QB, WIDE, false>(xsT, ldx, W, part, N, Q, splits,
-                                            cols_per_split, stream);
+// TMA needs at least one column and one coordinate, a box of at most 256
+// coordinates and 16-byte aligned rows (for A's W, N % 4 == 0).
+template <int QB, bool WIDE, bool HAS_W>
+cudaError_t launch_contract_qb(const ContractArgs& a) {
+  const int qs = WIDE ? a.Q : QB;
+  if (a.N > 0 && a.Q > 0 && qs <= TMA_BOX_MAX && (uintptr_t)a.xcT % 16 == 0 &&
+      a.ldc % 4 == 0 &&
+      (!HAS_W || (a.N % 4 == 0 && (uintptr_t)a.wgt % 16 == 0)))
+    return launch_contract_as<QB, WIDE, true, HAS_W>(a);
+  return launch_contract_as<QB, WIDE, false, HAS_W>(a);
+}
+
+// f(QB, WIDE), as std::integral_constant and std::bool_constant, for the
+// specialisation that serves Q.  Other Q pad up to the next: zero
+// coordinates add nothing.
+template <typename F>
+auto by_q(int Q, F&& f) {
+  using std::bool_constant;
+  using std::integral_constant;
+  if (Q <= 3) return f(integral_constant<int, 3>{}, bool_constant<false>{});
+  if (Q == 4) return f(integral_constant<int, 4>{}, bool_constant<false>{});
+  if (Q <= 7) return f(integral_constant<int, 7>{}, bool_constant<false>{});
+  if (Q <= 10) return f(integral_constant<int, 10>{}, bool_constant<false>{});
+  if (Q <= C_QMAX)
+    return f(integral_constant<int, C_QMAX>{}, bool_constant<false>{});
+  return f(integral_constant<int, C_QMAX>{}, bool_constant<true>{});
+}
+
+template <bool HAS_W>
+cudaError_t launch_contract(const ContractArgs& a) {
+  return by_q(a.Q, [&](auto qb, auto wide) {
+    return launch_contract_qb<decltype(qb)::value, decltype(wide)::value,
+                              HAS_W>(a);
+  });
+}
+
+// Blocks of G's contraction (its TMA instantiation) that one SM of the
+// current card holds at once at this Q; 0 where none fits.
+int gradmu_resident(int Q) {
+  return by_q(Q, [&](auto qb, auto wide) {
+    constexpr int QB = decltype(qb)::value;
+    constexpr bool WIDE = decltype(wide)::value;
+    const auto kernel = contract_kernel<QB, WIDE, true, false>;
+    const size_t smem = contract_smem(WIDE ? Q : QB, WIDE, false);
+    int n = 0;
+    if (allow_smem(kernel, smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, C_THREADS,
+                                                      smem) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    return n;
+  });
+}
+
+// The column ranges [s * cols_per_split, (s + 1) * cols_per_split) must
+// cover [0, N) and start on tile boundaries.
+bool bad_split(int N, int splits, int cols_per_split) {
+  return splits < 1 || splits > 65535 || cols_per_split <= 0 ||
+         cols_per_split % C_BN != 0 ||
+         (long long)splits * cols_per_split < N;
 }
 
 }  // namespace
@@ -635,60 +790,56 @@ int edrgp_rbf_kernel_matrix(const float* x1, const float* x2,
   return (int)cudaGetLastError();
 }
 
-int edrgp_rbf_grad_mu(const float* xs, const float* xt, const float* alpha,
-                      const float* sigma2, float* out, int M, int N, int Q,
+// Rows and columns of the contraction's tile: its column ranges start on
+// multiples of it.
+int edrgp_rbf_contract_tile() { return C_BN; }
+
+// Blocks of G's contraction an SM holds at once at this Q, for the column
+// split's plan.
+int edrgp_rbf_grad_mu_resident(int Q) {
+  return Q > 0 ? gradmu_resident(Q) : 0;
+}
+
+// G [M][Q] from Xnew [M][Q], X [N][Q], alpha [N] and the [Q] lengthscales
+// ls.  Scratch: xrT [Q][ldr] and xcT [Q + 2][ldc] (ldr >= M, ldc >= N,
+// multiples of 4, 16-byte aligned) and part, splits * M * (Q + 1) floats.
+int edrgp_rbf_grad_mu(const float* Xnew, const float* X, const float* alpha,
+                      const float* ls, const float* sigma2, float* G,
+                      float* xrT, int ldr, float* xcT, int ldc, float* part,
+                      int M, int N, int Q, int splits, int cols_per_split,
                       void* stream) {
-  if (M <= 0) return (int)cudaSuccess;
-  const size_t smem = gradmu_smem(Q);
-  cudaError_t err = allow_smem(gradmu_kernel, smem);
+  if (M <= 0 || Q <= 0) return (int)cudaSuccess;
+  if (N < 0 || ldr < M || ldc < N || ldr % 4 || ldc % 4 ||
+      bad_split(N, splits, cols_per_split))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  gradmu_stage_kernel<<<pass_blocks((size_t)M + ldc), 256, 0, st>>>(
+      Xnew, X, alpha, ls, xrT, ldr, xcT, ldc, M, N, Q);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_contract<false>({xrT, ldr, xcT, ldc, xcT + (size_t)Q * ldc,
+                                  part, M, N, Q, splits, cols_per_split, st});
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + G_ROWS - 1) / G_ROWS;
-  gradmu_kernel<<<blocks, G_ROWS, smem, (cudaStream_t)stream>>>(
-      xs, xt, alpha, sigma2, out, M, N, Q);
+  gradmu_finish_kernel<<<pass_blocks((size_t)M * Q), 256, 0, st>>>(
+      part, xrT, ldr, ls, sigma2, G, M, Q, splits);
   return (int)cudaGetLastError();
 }
 
-// Rows and columns of the adjoint's tile: its column ranges start on
-// multiples of it.
-int edrgp_rbf_adjoint_tile() { return A_BN; }
-
 // xsT holds the scaled rows transposed, [max(Q, 1)][ldx] with ldx >= N and
-// 16-byte aligned rows; part is
-// scratch of splits * N * (Q + 1) floats; the column ranges
-// [s * cols_per_split, (s + 1) * cols_per_split) must cover [0, N) and
-// start on tile boundaries.
+// 16-byte aligned rows; part is scratch of splits * N * (Q + 1) floats.
 int edrgp_rbf_nlml_adjoint(const float* xsT, int ldx, const float* W,
                            const float* sigma2, float* P, float* r,
                            float* part, int N, int Q, int splits,
                            int cols_per_split, void* stream) {
   if (N <= 0) return (int)cudaSuccess;
-  if (Q < 0 || ldx < N || splits < 1 || splits > 65535 || cols_per_split <= 0 ||
-      cols_per_split % A_BN != 0 || (long long)splits * cols_per_split < N)
+  if (Q < 0 || ldx < N || bad_split(N, splits, cols_per_split))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-#define EDRGP_ADJ(QB, WIDE) \
-  launch_adjoint<QB, WIDE>(xsT, ldx, W, part, N, Q, splits, cols_per_split, st)
-  // Other Q pad up to the next specialisation: zero coordinates add nothing.
-  if (Q <= 3)
-    err = EDRGP_ADJ(3, false);
-  else if (Q == 4)
-    err = EDRGP_ADJ(4, false);
-  else if (Q <= 7)
-    err = EDRGP_ADJ(7, false);
-  else if (Q <= 10)
-    err = EDRGP_ADJ(10, false);
-  else if (Q <= A_QMAX)
-    err = EDRGP_ADJ(A_QMAX, false);
-  else
-    err = EDRGP_ADJ(A_QMAX, true);
-#undef EDRGP_ADJ
+  const cudaError_t err = launch_contract<true>(
+      {xsT, ldx, xsT, ldx, W, part, N, N, Q, splits, cols_per_split, st});
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)N * (Q + 1);
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
-                                                      : 4096);
-  adjoint_reduce_kernel<<<blocks, 256, 0, st>>>(part, sigma2, P, r, N, Q,
-                                                splits);
+  adjoint_reduce_kernel<<<pass_blocks((size_t)N * (Q + 1)), 256, 0, st>>>(
+      part, sigma2, P, r, N, Q, splits);
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,7 @@ rbf_nlml_adjoint       rbf_nlml_adjoint (pallas_call :262)      NLML backward
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -31,7 +32,7 @@ from . import _build
 
 __all__ = ["rbf_kernel_matrix", "rbf_grad_mu", "rbf_nlml_adjoint",
            "rbf_kernel_matrix_plain", "rbf_grad_mu_plain",
-           "rbf_nlml_adjoint_plain", "adjoint_split", "LAUNCHES",
+           "rbf_nlml_adjoint_plain", "column_split", "LAUNCHES",
            "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
@@ -40,10 +41,13 @@ LAUNCHES = {"rbf_kernel_matrix": 0, "rbf_grad_mu": 0, "rbf_nlml_adjoint": 0}
 #: Rows of the [rows, N] kernel block the plain dμ/dx* holds at once.
 _PLAIN_BLOCK_ELEMS = 1 << 26
 
-#: Blocks per SM the adjoint's column split aims for: at least two waves
-#: of one block per SM.  Each split adds a partial (P, r) per row to write
-#: and to add up again, so more is not better.
-_ADJOINT_BLOCKS_PER_SM = 2
+#: Blocks per SM the contraction's column split aims for by default (A):
+#: at least two waves of one block per SM.  Each split adds a partial
+#: (P, r) per row to write and to add up again, so more is not better.
+_BLOCKS_PER_SM = 2
+
+#: G fills one wave of the blocks an SM holds at once, to within this share.
+_WAVE_FILL = 0.95
 
 
 def reset_launches() -> None:
@@ -125,6 +129,55 @@ def rbf_kernel_matrix(X1s, X2s, sigma2):
 
 
 # ---------------------------------------------------------------------------
+# The contraction kernel that A and G share: its column split and inputs
+# ---------------------------------------------------------------------------
+
+def column_split(rows: int, cols: int, sms: int, tile: int,
+                 blocks_per_sm: float = _BLOCKS_PER_SM) -> tuple[int, int]:
+    """(splits, cols_per_split) for the contraction kernel on a card with
+    ``sms`` SMs and the kernel's square ``tile``: the ``cols`` columns go to
+    ``splits`` ranges of ``cols_per_split`` (a multiple of the tile)
+    columns, the last one ragged, so that the rows/tile row tiles times the
+    splits give at least ``blocks_per_sm`` blocks per SM, with one split
+    once the row tiles alone do.  The ranges cover [0, cols) once, and none
+    is empty unless cols is 0."""
+    row_tiles = max(1, -(-rows // tile))
+    col_tiles = max(1, -(-cols // tile))
+    want = min(col_tiles,
+               max(1, math.ceil(blocks_per_sm * sms / row_tiles)))
+    per = -(-col_tiles // want)
+    return -(-col_tiles // per), per * tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _contract_tile() -> int:
+    """The contraction kernel's tile, as the built library states it."""
+    return _build.load().edrgp_rbf_contract_tile()
+
+
+@functools.lru_cache(maxsize=None)
+def _gradmu_resident(Q: int, index: int) -> int:
+    """Blocks of G's contraction at this Q that an SM of card ``index``
+    holds at once, as the built library computes it."""
+    with torch.cuda.device(index):
+        return max(1, _build.load().edrgp_rbf_grad_mu_resident(Q))
+
+
+def _gradmu_split(M: int, N: int, Q: int, index: int) -> tuple[int, int]:
+    """G's column split on card ``index``: one wave of the blocks its SMs
+    hold at once, short by up to 5% (2 splits at M=N=8,192, Q=10, where an
+    SM holds two blocks, instead of 3 that spill a third of the blocks
+    into a second wave)."""
+    return column_split(M, N, _sm_count(index), _contract_tile(),
+                        _WAVE_FILL * _gradmu_resident(Q, index))
+
+
+# ---------------------------------------------------------------------------
 # dμ/dx*: G[m] = Σᵢ αᵢ k(x*_m, xᵢ)(xᵢ − x*_m)/ℓ²
 # ---------------------------------------------------------------------------
 
@@ -151,45 +204,30 @@ def rbf_grad_mu(Xnew, X, alpha, lengthscale, sigma2):
                          f"{tuple(alpha.shape)}")
     if not _on_card(Xnew, X, alpha):
         return rbf_grad_mu_plain(Xnew, X, alpha, lengthscale, sigma2)
-    (M, Q), N = Xnew.shape, X.shape[0]
-    ls = _lengthscale(lengthscale, Q, X)
-    xs, xt = (Xnew.detach() / ls).contiguous(), (X.detach() / ls).contiguous()
-    a = alpha.detach().contiguous()
-    out = torch.empty_like(xs)
-    if M:
-        s2 = _scalar(sigma2, xs)
-        _launch("rbf_grad_mu", xs.data_ptr(), xt.data_ptr(), a.data_ptr(),
-                s2.data_ptr(), out.data_ptr(), M, N, Q)
-    return out / ls
+    (M, Q), N, dev = Xnew.shape, X.shape[0], X.device
+    G = torch.empty((M, Q), dtype=torch.float32, device=dev)
+    if not (M and Q):
+        return G
+    ls = _lengthscale(lengthscale, Q, X).contiguous()
+    xn, x, a = (t.detach().contiguous() for t in (Xnew, X, alpha))
+    s2 = _scalar(sigma2, x)
+    # Scratch: both row sets centred, scaled and transposed by the kernel,
+    # with 16-byte aligned rows; α and the training rows' norms ride as
+    # rows Q and Q + 1.
+    ldr, ldc = -(-M // 4) * 4, -(-N // 4) * 4
+    xrT = torch.empty((Q, ldr), dtype=torch.float32, device=dev)
+    xcT = torch.empty((Q + 2, ldc), dtype=torch.float32, device=dev)
+    splits, cols = _gradmu_split(M, N, Q, dev.index)
+    part = torch.empty((splits, M, Q + 1), dtype=torch.float32, device=dev)
+    _launch("rbf_grad_mu", xn.data_ptr(), x.data_ptr(), a.data_ptr(),
+            ls.data_ptr(), s2.data_ptr(), G.data_ptr(), xrT.data_ptr(), ldr,
+            xcT.data_ptr(), ldc, part.data_ptr(), M, N, Q, splits, cols)
+    return G
 
 
 # ---------------------------------------------------------------------------
 # NLML adjoint: P = (W∘K)·Xs [N, Q], r = (W∘K)·1 [N]
 # ---------------------------------------------------------------------------
-
-def adjoint_split(N: int, sms: int, tile: int) -> tuple[int, int]:
-    """(splits, cols_per_split) for the adjoint kernel on a card with
-    ``sms`` SMs and the kernel's square ``tile``: the N columns go to
-    ``splits`` ranges of ``cols_per_split`` (a multiple of the tile)
-    columns, the last one ragged, so that the N/tile row tiles times the
-    splits give about ``_ADJOINT_BLOCKS_PER_SM`` blocks per SM.  Every range
-    is non-empty and together they cover [0, N) once."""
-    tiles = max(1, -(-N // tile))
-    want = min(tiles, max(1, -(-_ADJOINT_BLOCKS_PER_SM * sms // tiles)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * tile
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
-def _adjoint_tile() -> int:
-    """The adjoint kernel's tile, as the built library states it."""
-    return _build.load().edrgp_rbf_adjoint_tile()
-
 
 def rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2):
     """(P, r) with P = (W∘K)·Xs and r = (W∘K)·1, K = K(Xs, Xs), Xs = X/ℓ."""
@@ -223,8 +261,8 @@ def rbf_nlml_adjoint(X, W, lengthscale, sigma2):
     r = torch.empty((N,), dtype=torch.float32, device=dev)
     if N:
         s2 = _scalar(sigma2, X)
-        splits, cols = adjoint_split(N, _sm_count(dev.index),
-                                     _adjoint_tile())
+        splits, cols = column_split(N, N, _sm_count(dev.index),
+                                    _contract_tile())
         part = torch.empty((splits, N, Q + 1), dtype=torch.float32,
                            device=dev)
         _launch("rbf_nlml_adjoint", xsT.data_ptr(), ldx, w.data_ptr(),

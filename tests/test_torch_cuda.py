@@ -67,24 +67,116 @@ def test_cuda_kernels_match_plain(card, Q):
 @pytest.mark.parametrize("Q", [7, 9, 33])
 @pytest.mark.parametrize("N", [1, 63, 65, 517, 4097, 4100])
 def test_cuda_kernels_ragged_n(card, N, Q):
-    """K and A at N that straddle the 64-wide tiles and A's column splits
-    (N=4,097 puts one column in the last split on a 132-SM card), in a
-    narrow (Q=7), a padded (Q=9, run as 10) and the wide (Q=33)
-    instantiation of A.  N not a multiple of 4 takes the 4-byte loads and
-    stores; N=4,100 takes A's TMA loads, zero-filled past the edges of W
-    and, at Q=9, past the last coordinate."""
+    """K, G and A at N that straddle the 64-wide tiles and the column splits
+    (N=4,097 puts one column in the last split of A on a 132-SM card), in
+    a narrow (Q=7), a padded (Q=9, run as 10) and the wide (Q=33)
+    instantiation of the contraction.  N not a multiple of 4 takes the
+    4-byte loads and stores; N=4,100 takes A's TMA loads, zero-filled past
+    the edges of W and, at Q=9, past the last coordinate.  G runs
+    M = N − N//3 test rows against the N training rows, by TMA at every
+    N."""
     g = torch.Generator().manual_seed(N + Q)
     X = torch.randn(N, Q, generator=g).to(card)
     ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
     W = torch.randn(N, N, generator=g).to(card)
     W = W + W.T
+    alpha = torch.randn(N, generator=g).to(card)
+    Xnew = torch.randn(N - N // 3, Q, generator=g).to(card)
     K = rbf.rbf_kernel_matrix(X[:N - N // 3] / ls, X / ls, 0.7)
+    G = rbf.rbf_grad_mu(Xnew, X, alpha, ls, 0.7)
     P, r = rbf.rbf_nlml_adjoint(X, W, ls, 0.7)
     torch.cuda.synchronize()
     assert _rel(K, rbf.rbf_kernel_matrix_plain(X[:N - N // 3] / ls, X / ls,
                                                0.7)) < 1e-5
+    assert _rel(G, rbf.rbf_grad_mu_plain(Xnew, X, alpha, ls, 0.7)) < 1e-4
     P0, r0 = rbf.rbf_nlml_adjoint_plain(X, W, ls, 0.7)
     assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 9, 33])
+def test_cuda_grad_mu_without_training_rows(card, Q):
+    """With N = 0 training rows the posterior mean is 0, and so is its
+    gradient: G launches over an empty column range and returns zeros."""
+    g = torch.Generator().manual_seed(Q)
+    Xnew = torch.randn(130, Q, generator=g).to(card)
+    X = torch.empty((0, Q), device=card)
+    alpha = torch.empty((0,), device=card)
+    rbf.reset_launches()
+    G = rbf.rbf_grad_mu(Xnew, X, alpha, torch.ones(Q, device=card), 1.0)
+    torch.cuda.synchronize()
+    assert rbf.LAUNCHES["rbf_grad_mu"] == 1
+    assert G.shape == (130, Q) and torch.equal(G, torch.zeros_like(G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,Q", [(20_000, 700, 10), (17_000, 300, 33),
+                                   (100, 4000, 10), (64, 4097, 3)])
+def test_cuda_grad_mu_rows_and_columns(card, M, N, Q):
+    """G at M ≠ N: many test rows against few training rows take one
+    column split, few test rows against many training rows take many;
+    both match the plain version."""
+    g = torch.Generator().manual_seed(M + N + Q)
+    Xnew = torch.randn(M, Q, generator=g).to(card)
+    X = torch.randn(N, Q, generator=g).to(card)
+    alpha = torch.randn(N, generator=g).to(card)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    splits, _ = rbf._gradmu_split(M, N, Q, torch.cuda.current_device())
+    assert (splits == 1) == (M > N)
+    G = rbf.rbf_grad_mu(Xnew, X, alpha, ls, 1.3)
+    torch.cuda.synchronize()
+    assert _rel(G, rbf.rbf_grad_mu_plain(Xnew, X, alpha, ls, 1.3)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [200, 302])
+def test_cuda_grad_mu_wide_q(card, Q):
+    """G has no W tiles beside x_j, so its wide instantiation reaches
+    Q=302, as far as the kernel it replaced; Q=302 stages more than a TMA
+    box holds and takes the cp.async loads."""
+    g = torch.Generator().manual_seed(Q)
+    Xnew = torch.randn(150, Q, generator=g).to(card)
+    X = torch.randn(517, Q, generator=g).to(card)
+    alpha = torch.randn(517, generator=g).to(card)
+    ls = torch.full((Q,), Q ** 0.5, device=card)
+    G = rbf.rbf_grad_mu(Xnew, X, alpha, ls, 1.0)
+    torch.cuda.synchronize()
+    assert _rel(G, rbf.rbf_grad_mu_plain(Xnew, X, alpha, ls, 1.0)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_grad_mu_q_limit_raises(card):
+    """One coordinate above G's limit (Q=303) the launch is refused with an
+    error rather than computed another way, and the refusal leaves no
+    error behind for the next launch."""
+    g = torch.Generator().manual_seed(303)
+    X = torch.randn(100, 303, generator=g).to(card)
+    alpha = torch.randn(100, generator=g).to(card)
+    ls = torch.full((303,), 303 ** 0.5, device=card)
+    with pytest.raises(RuntimeError, match="rbf_grad_mu launch failed"):
+        rbf.rbf_grad_mu(X, X, alpha, ls, 1.0)
+    G = rbf.rbf_grad_mu(X[:, :10], X[:, :10], alpha, ls[:10], 1.0)
+    torch.cuda.synchronize()
+    assert _rel(G, rbf.rbf_grad_mu_plain(X[:, :10], X[:, :10], alpha,
+                                         ls[:10], 1.0)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [3, 10, 33])
+def test_cuda_grad_mu_far_from_origin(card, Q):
+    """Inputs offset by +5 lengthscales in every coordinate: the form
+    Σw·xs − xs*·Σw would cancel there, so G is held to 1e-4 of its largest
+    entry against the plain version in float64 on the card."""
+    g = torch.Generator().manual_seed(500 + Q)
+    ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    Xnew = (torch.randn(1500, Q, generator=g).to(card) + 5.0) * ls
+    X = (torch.randn(2500, Q, generator=g).to(card) + 5.0) * ls
+    alpha = torch.randn(2500, generator=g).to(card)
+    G = rbf.rbf_grad_mu(Xnew, X, alpha, ls, 1.3)
+    G0 = rbf.rbf_grad_mu_plain(Xnew.double(), X.double(), alpha.double(),
+                               ls.double(), 1.3)
+    torch.cuda.synchronize()
+    assert _rel(G.double(), G0) < 1e-4
 
 
 @pytest.mark.cuda
@@ -109,19 +201,23 @@ def test_cuda_adjoint_any_w(card, Q):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", [4, 10, 33])
 def test_cuda_kernels_are_deterministic(card, Q):
-    """Two launches of K, and two of A, on the same inputs agree bit for
-    bit: A adds its column splits in a fixed order, with no atomics."""
+    """Two launches of K, two of G and two of A on the same inputs agree
+    bit for bit: G and A add their column splits (eight for G's 2,000 test
+    rows on a 132-SM card) in a fixed order, with no atomics."""
     g = torch.Generator().manual_seed(Q)
     N = 3000
     X = torch.randn(N, Q, generator=g).to(card)
     ls = (torch.rand(Q, generator=g) + 0.5).to(card) * Q ** 0.5
     W = torch.randn(N, N, generator=g).to(card)
+    alpha = torch.randn(N, generator=g).to(card)
+    Xnew = torch.randn(2000, Q, generator=g).to(card)
     K1 = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.3)
     K2 = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.3)
+    G1, G2 = (rbf.rbf_grad_mu(Xnew, X, alpha, ls, 1.3) for _ in range(2))
     (P1, r1), (P2, r2) = (rbf.rbf_nlml_adjoint(X, W, ls, 1.3)
                           for _ in range(2))
     torch.cuda.synchronize()
-    assert torch.equal(K1, K2)
+    assert torch.equal(K1, K2) and torch.equal(G1, G2)
     assert torch.equal(P1, P2) and torch.equal(r1, r2)
 
 

@@ -95,12 +95,19 @@ def test_shape_mismatch_raises():
 
 
 @pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("N", [1, 63, 64, 65, 8192, 10_000])
-def test_adjoint_split_covers_every_column_once(N, sms):
-    """The adjoint kernel's column ranges [s·cols, (s+1)·cols) ∩ [0, N):
-    tile-aligned, none empty, every column in exactly one."""
+@pytest.mark.parametrize("rows,N", [
+    *(pytest.param(N, N, id=str(N))
+      for N in (1, 63, 64, 65, 8192, 10_000)),
+    *(pytest.param(rows, N, id=f"{rows}x{N}")
+      for rows, N in ((102_400, 8192), (1_048_576, 512), (100, 4000),
+                      (20_000, 700), (1, 8192)))])
+def test_adjoint_split_covers_every_column_once(rows, N, sms):
+    """The contraction kernel's column ranges [s·cols, (s+1)·cols) ∩ [0, N)
+    for ``rows`` rows (N for A, the M test rows for G): tile-aligned, none
+    empty, every column in exactly one; one split once the row tiles
+    alone fill two waves."""
     tile = 64
-    splits, cols = trbf.adjoint_split(N, sms, tile)
+    splits, cols = trbf.column_split(rows, N, sms, tile)
     assert splits >= 1 and cols > 0 and cols % tile == 0
     covered = np.zeros(N, dtype=int)
     for s in range(splits):
@@ -108,8 +115,27 @@ def test_adjoint_split_covers_every_column_once(N, sms):
         assert lo < hi
         covered[lo:hi] += 1
     assert (covered == 1).all()
-    if sms == 132 and N >= 8192:     # at least two waves on an H100
-        assert splits * -(-N // tile) >= 2 * sms
+    row_tiles = -(-rows // tile)
+    if sms == 132 and min(rows, N) >= 8192:   # two waves on an H100
+        assert splits * row_tiles >= 2 * sms
+    if row_tiles >= 2 * sms:
+        assert splits == 1
+
+
+def test_column_split_of_a_square_plans_as_the_adjoint_did():
+    """For A (rows = columns = N) the shared planner gives the splits that
+    the adjoint's own planner gave, and no training rows plan one split
+    over an empty range."""
+    def adjoint_plan(N, sms, tile):
+        tiles = max(1, -(-N // tile))
+        want = min(tiles, max(1, -(-2 * sms // tiles)))
+        per = -(-tiles // want)
+        return -(-tiles // per), per * tile
+
+    for N in [*range(1, 700, 7), 4097, 4100, 8191, 8192, 10_000, 65_536]:
+        for sms in (1, 78, 132):
+            assert trbf.column_split(N, N, sms, 64) == adjoint_plan(N, sms, 64)
+    assert trbf.column_split(300, 0, 132, 64) == (1, 64)
 
 
 def test_library_is_named_after_its_source(tmp_path):
