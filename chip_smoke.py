@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-GP EDR main path once on an NVIDIA GPU.
+"""Drive the PyTorch port's exact-GP and sparse EDR paths once on an NVIDIA
+GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -25,21 +26,43 @@ Phases, in order, each printing one JSON line:
    subspace, 5 float32 restarts, ``max_iters=200``; every kernel must launch
    in it and the subspace must be recovered (discrepancy < 0.1); then
    gradients — the first fit's gradient extraction alone at N=8,192,
-   Q=10, and the part of it that kernel G takes.
+   Q=10, and the part of it that kernel G takes;
+6. sgpr — BASELINE config 3 (``benchmarks/baseline_scale_tpu.py:29-58``)
+   in the port: ``SGPRModel`` with 512 inducing inputs on N=100,000, Q=8,
+   float32, 5 restarts, ``max_iters=200``; the RMSE against the noise-free
+   target on 4,000 rows must be below 0.05; kernel G must serve
+   ``predictive_gradients`` at 100,000 × 512; a save/load round trip on the
+   card must predict the same bits; a torch.profiler split of one ELBO
+   value+grad at that size; SGPR at N=2,000, M=64 on the card against the
+   port's CPU float64 at the same parameters (ELBO within 1e-4 relative,
+   dμ/dx* within 1e-4 of its largest entry), from a lengthscale that
+   keeps the signal; the uncertain-input bound (``X_variance=0.01``) and
+   its gradients at N=5,000, M=128 (two Psi2 chunks) on the card against
+   the port's CPU float64 at the same fixed parameters (bound within 1e-4
+   relative, each gradient within 1e-3 of its largest entry); an
+   uncertain-input fit (N=8,192, M=128) with a finite bound;
+7. sparse_edr — ``EffectiveDimensionalityReduction(
+   SparseGaussianProcessRegressor(kernels="RBF", kernel_options={"ARD":
+   True}, num_inducing=512), SVDTransformer(), n_components=3)`` at
+   N=100,000, Q=10 on main_path's data, ``max_iters=200``: kernels G and K
+   must launch in it and the subspace must be recovered (discrepancy < 0.1).
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
-of bound, launches on the main path; ``library_ms`` is null because no
-single PyTorch call computes any of the three functions), the
-``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``, printed only when every phase
+of bound, launches on the main path and, under ``launches_by_path``, on
+each path; ``library_ms`` is null because no single PyTorch call computes
+any of the three functions), the ``nvidia-smi`` name and power limit, and
+last ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Any failure raises and exits non-zero; so does a machine without
 CUDA.  The script imports nothing of JAX.
 """
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -187,18 +210,23 @@ def _kernel_case(name, rows, cols, Q, gen):
 def phase_kernels():
     """Kernel vs plain at a ragged shape and the main path's: N=8,192 at
     each Q of the EDR's fits (10, 7, 4, 3), the held-out cross-kernel, G at
-    the tall shapes of sparse models' gradients (M=102,400 by N=8,192 and
-    M=1,048,576 by N=512: one column split), and each kernel at N=8,191
-    (N % 4 != 0: 4-byte stores for K, 4-byte cp.async loads instead of TMA
-    for A)."""
+    the tall shapes of sparse models' gradients (M=102,400 by N=8,192,
+    M=1,048,576 by N=512: one column split), the sparse paths' shapes (G
+    at 100,000 rows by 512 inducing inputs at the sgpr phase's Q=8 and at
+    each Q of sparse_edr's fits; K(Z, X*) at 512 by 2,000 in the last
+    fit's Q=3), and each kernel at N=8,191 (N % 4 != 0: 4-byte stores for
+    K, 4-byte cp.async loads instead of TMA for A)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fits = [(8192, 8192, Q) for Q in (10, 7, 4, 3)]
+    qs = (10, 7, 4, 3)
+    fits = [(8192, 8192, Q) for Q in qs]
     shapes = {
         "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
-                              (8191, 8191, 10)],
+                              (8191, 8191, 10), (512, 2000, 3)],
         "rbf_grad_mu": [(1000, 1537, 10), *fits, (8191, 8191, 10),
-                        (102400, 8192, 10), (1048576, 512, 10)],
+                        (102400, 8192, 10), (1048576, 512, 10),
+                        (100000, 512, 8),
+                        *[(100000, 512, Q) for Q in qs]],
         "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10)],
     }
     summary = {}
@@ -392,6 +420,316 @@ def phase_gradients(device, X, y):
           "non-finite predictive gradients")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _peak_gb(device, reset=False):
+    """Peak device memory in GB since the last reset (None on the CPU)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def count_calls(module, name):
+    """Count the calls of ``module.name`` made inside the block (the
+    models look it up there at each evaluation)."""
+    fn = getattr(module, name)
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _sgpr_problem(n, q, rng):
+    """BASELINE config 3's data (``benchmarks/baseline_scale_tpu.py:29-34``):
+    X uniform on [−3, 3], f = sin x₀·cos x₁ + 0.5·tanh x₂, noise 0.1."""
+    X = rng.uniform(-3, 3, size=(n, q)).astype(np.float32)
+    f = np.sin(X[:, 0]) * np.cos(X[:, 1]) + 0.5 * np.tanh(X[:, 2])
+    y = (f + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, y, f
+
+
+def _save_load_bitwise(model, Xs, device):
+    """Whether a pickle round trip (in a scratch directory under the
+    checkout's git-ignored ``build/``) predicts the same bits at Xs."""
+    from edrgp_tpu_torch.models.state import load_model
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        path = os.path.join(d, "model.pickle")
+        model.pickle(path)
+        loaded = load_model(path, device=device)
+    return all(np.array_equal(a, b) for a, b in
+               zip(model.predict(Xs), loaded.predict(Xs)))
+
+
+def phase_sgpr(device="cuda", N=100_000, M=512, Q=8, max_iters=200):
+    """BASELINE config 3: Titsias SGPR, 512 inducing inputs, N=100k."""
+    import torch
+    from edrgp_tpu_torch.models.state import SGPRModel
+    from edrgp_tpu_torch.ops import sgpr
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    rng = np.random.default_rng(0)
+    X, y, f = _sgpr_problem(N, Q, rng)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(sgpr, "elbo") as evals:
+        t0 = time.perf_counter()
+        model = SGPRModel(X, y, RBF(Q, ARD=True), num_inducing=M, seed=0,
+                          device=device)
+        model.optimize(max_iters=max_iters)
+        fit_s = time.perf_counter() - t0
+    fit_launches = dict(rbf.LAUNCHES)
+    idx = np.sort(rng.integers(0, N, 4000))
+    pred, var = model.predict(X[idx])
+    rmse = float(np.sqrt(np.mean((pred[:, 0] - f[idx]) ** 2)))
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    dmu, dvar = model.predictive_gradients(X)
+    grad_ms = 1e3 * (time.perf_counter() - t0)
+    grad_launches = dict(rbf.LAUNCHES)
+    peak = _peak_gb(device)
+    bitwise = _save_load_bitwise(model, X[idx], device)
+    emit(phase="sgpr", N=N, Q=Q, num_inducing=M, max_iters=max_iters,
+         fit_seconds=fit_s, elbo_evaluations=evals[0],
+         elbo=float(model.log_likelihood()[0][0]), rmse_vs_truth=rmse,
+         noise_std_truth=0.1, mean_pred_std=float(np.sqrt(var).mean()),
+         gradients_ms=grad_ms, launches_fit=fit_launches,
+         launches_gradients=grad_launches, save_load_bitwise=bitwise,
+         hyperparameters={k: np.asarray(v).tolist() for k, v in
+                          model.get_hyperparameters().items() if k != "['Z']"},
+         peak_mem_gb=peak)
+    check(np.isfinite(pred).all() and np.isfinite(dmu).all()
+          and np.isfinite(dvar).all() and dmu.shape == (N, Q, 1),
+          "bad SGPR predictions or gradients")
+    check(rmse < 0.05, f"SGPR RMSE vs truth {rmse:.4g} >= 0.05")
+    check(grad_launches["rbf_grad_mu"] == 1,
+          f"G did not serve the SGPR gradients: {grad_launches}")
+    check(bitwise, "SGPR save/load changed the predictions")
+    profile_sgpr_elbo(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_sgpr_reference(device)
+    phase_sgpr_uncertain_reference(device)
+    phase_sgpr_uncertain(device)
+
+
+def profile_sgpr_elbo(model, reps=3):
+    """torch.profiler split of one ELBO value+grad: device time of the
+    kernels launched under each of ``ops/sgpr.py``'s labels, the rest of
+    the forward, and the backward (all device time outside the forward)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from edrgp_tpu_torch.ops import sgpr
+
+    def step():
+        model.zero_grad()
+        with record_function("elbo.forward"):
+            loss = -sgpr.elbo(model, model._X, model._y)
+        loss.backward()
+
+    ms = cuda_ms(step, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    busy = sum(k.duration for e in cpu_ops for k in e.kernels) / reps / 1e3
+    split = {}
+    for e in cpu_ops:
+        if e.name.startswith("sgpr.") or e.name == "elbo.forward":
+            split[e.name] = (split.get(e.name, 0.0)
+                             + e.device_time_total / reps / 1e3)
+    forward = split.pop("elbo.forward", 0.0)
+    split["forward_other"] = forward - sum(split.values())
+    split["backward"] = busy - forward
+    emit(phase="sgpr_profile", N=model._X.shape[0], M=model.Z.shape[0],
+         Q=model._X.shape[1], ms_per_eval=ms, device_busy_ms=busy,
+         idle_share=1.0 - busy / ms if ms else None,
+         profile_has_device_time=busy > 0, split_ms=split)
+
+
+#: Starting lengthscale of the small sparse fits.  At the default 1.0 in
+#: Q=8 on [−3, 3]⁸ two points lie ~7 lengthscales apart, the kernel is
+#: ~e⁻²⁴ between them, and a short fit from there ends at the noise-only
+#: optimum (signal variance → 0), where a comparison sees no kernel.
+SIGNAL_LENGTHSCALE = 2.0
+
+
+def phase_sgpr_reference(device="cuda", N=2000, M=64, Q=8):
+    """SGPR on the card (float32) against the port's CPU float64 model at
+    the card fit's parameters (a fit that keeps the signal)."""
+    from edrgp_tpu_torch.models.state import SGPRModel
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y, f = _sgpr_problem(N, Q, np.random.default_rng(1))
+    card = SGPRModel(X, y, RBF(Q, ARD=True, lengthscale=SIGNAL_LENGTHSCALE),
+                     num_inducing=M, seed=0, device=device)
+    card.optimize(max_iters=100, num_restarts=1)
+    cpu = SGPRModel(X, y, RBF(Q, ARD=True), num_inducing=M, seed=0,
+                    device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    elbo_card = float(card.log_likelihood()[0][0])
+    elbo_cpu = float(cpu.log_likelihood()[0][0])
+    rbf.reset_launches()
+    dmu_card = card.predictive_gradients(X)[0][:, :, 0]
+    launches = dict(rbf.LAUNCHES)
+    dmu_cpu = cpu.predictive_gradients(X)[0][:, :, 0]
+    elbo_rel = abs(elbo_card - elbo_cpu) / abs(elbo_cpu)
+    dmu_rel = float(np.abs(dmu_card - dmu_cpu).max() / np.abs(dmu_cpu).max())
+    rmse = float(np.sqrt(np.mean((card.predict(X)[0][:, 0] - f) ** 2)))
+    emit(phase="sgpr_reference", N=N, M=M, Q=Q, elbo_card=elbo_card,
+         elbo_cpu_f64=elbo_cpu, elbo_rel_diff=elbo_rel,
+         dmu_rel_diff=dmu_rel, launches=launches, rmse_vs_truth=rmse,
+         signal_variance=card.get_hyperparameters()["['kernel']['variance']"])
+    check(elbo_rel < 1e-4, f"card ELBO differs by {elbo_rel:.3g}")
+    check(dmu_rel < 1e-4, f"card dμ/dx* differs by {dmu_rel:.3g}")
+    check(launches["rbf_grad_mu"] >= 1, f"G did not launch: {launches}")
+
+
+def phase_sgpr_uncertain_reference(device="cuda", N=5000, M=128, Q=8,
+                                   limit_bound=1e-4, limit_grad=1e-3):
+    """The uncertain-input bound (``X_variance=0.01``) and its gradients in
+    every parameter on the card (float32) against the port's CPU float64
+    at the same fixed parameters (ℓ = SIGNAL_LENGTHSCALE, σ² = 1,
+    σₙ² = 0.05, the seeded Z); N is past one Psi2 chunk, so the chunked,
+    checkpointed sum runs in both directions.  Limits: the bound to 1e-4
+    relative, each parameter's gradient to 1e-3 of its largest entry."""
+    import torch
+    from edrgp_tpu_torch.models.state import SGPRModel
+    from edrgp_tpu_torch.ops.exact import grad_batch_size
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y, _ = _sgpr_problem(N, Q, np.random.default_rng(3))
+    out = []
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+        m = SGPRModel(X, y, RBF(Q, ARD=True, lengthscale=SIGNAL_LENGTHSCALE),
+                      num_inducing=M, seed=0, X_variance=0.01, noise_var=0.05,
+                      device=dev, dtype=dtype)
+        m.zero_grad()
+        loss = m._objective_fn()()
+        loss.backward()
+        out.append((-float(loss.detach()),
+                    {n: p.grad.detach().cpu().double().numpy()
+                     for n, p in m.named_parameters()}))
+    (b_card, g_card), (b_cpu, g_cpu) = out
+    bound_rel = abs(b_card - b_cpu) / abs(b_cpu)
+    grad_rel = {n: float(np.abs(g_card[n] - g_cpu[n]).max()
+                         / np.abs(g_cpu[n]).max()) for n in g_cpu}
+    chunk = grad_batch_size(N, M * M)
+    emit(phase="sgpr_uncertain_reference", N=N, M=M, Q=Q,
+         psi2_chunks=-(-N // chunk), bound_card=b_card, bound_cpu_f64=b_cpu,
+         bound_rel_diff=bound_rel, grad_rel_diff=grad_rel,
+         limits={"bound": limit_bound, "grad": limit_grad})
+    check(N > chunk, "the reference does not cross a Psi2 chunk")
+    check(bound_rel < limit_bound,
+          f"card uncertain bound differs by {bound_rel:.3g}")
+    for n, rel in grad_rel.items():
+        check(rel < limit_grad,
+              f"card uncertain-bound gradient in {n} differs by {rel:.3g}")
+
+
+def phase_sgpr_uncertain(device="cuda", N=8192, M=128, Q=8, max_iters=50):
+    """An uncertain-input SGPR fit (X_variance=0.01) from a lengthscale that
+    keeps the signal: the psi statistics' [N, M, M] terms are summed in
+    chunks; the peak memory shows it.  The CPU float64 bound at the card
+    fit's parameters shows how far float32 rounding moved the bound the
+    fit climbed."""
+    import torch
+    from edrgp_tpu_torch.models.state import SGPRModel
+    from edrgp_tpu_torch.ops.exact import grad_batch_size
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y, f = _sgpr_problem(N, Q, np.random.default_rng(2))
+    _peak_gb(device, reset=True)
+    t0 = time.perf_counter()
+    model = SGPRModel(X, y, RBF(Q, ARD=True, lengthscale=SIGNAL_LENGTHSCALE),
+                      num_inducing=M, seed=0, X_variance=0.01, device=device)
+    model.optimize(max_iters=max_iters)
+    fit_s = time.perf_counter() - t0
+    peak = _peak_gb(device)
+    bound = float(model.log_likelihood()[0][0])
+    pred = model.predict(X[:2000])[0][:, 0]
+    cpu = SGPRModel(X, y, RBF(Q, ARD=True), num_inducing=M, seed=0,
+                    X_variance=0.01, device="cpu", dtype=torch.float64)
+    cpu.load_state_dict(model.state_dict())
+    bound_cpu = float(cpu.log_likelihood()[0][0])
+    emit(phase="sgpr_uncertain", N=N, M=M, Q=Q, max_iters=max_iters,
+         fit_seconds=fit_s, elbo=bound, elbo_cpu_f64_at_fit=bound_cpu,
+         elbo_rel_diff=abs(bound - bound_cpu) / abs(bound_cpu),
+         rmse_vs_truth=float(np.sqrt(np.mean((pred - f[:2000]) ** 2))),
+         hyperparameters={k: np.asarray(v).tolist() for k, v in
+                          model.get_hyperparameters().items() if k != "['Z']"},
+         psi2_chunk_rows=grad_batch_size(N, M * M),
+         psi2_terms_gb_unchunked=N * M * M * 4 / 1e9, peak_mem_gb=peak)
+    check(math.isfinite(bound), "non-finite uncertain-input bound")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_sparse_edr(device="cuda", N=100_000, max_iters=200):
+    """The slice's main path: EDR over the sparse regressor at N=100k."""
+    import torch
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.datasets import get_beta_inputs, get_edr_target
+    from edrgp_tpu_torch.models import SparseGaussianProcessRegressor
+    from edrgp_tpu_torch.ops import sgpr
+    from edrgp_tpu_torch.ops.cuda import rbf
+    Q, D = 10, 3
+    rng = np.random.default_rng(0)
+    X = get_beta_inputs(N, Q, rng=rng)
+    B = np.linalg.qr(rng.normal(size=(Q, D)))[0]
+    y = get_edr_target(X @ B, sigma=0.1, rng=rng)
+    X_test = get_beta_inputs(2000, Q, rng=rng)
+    y_test = get_edr_target(X_test @ B)
+
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(sgpr, "elbo") as evals:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            SparseGaussianProcessRegressor(
+                kernels="RBF", kernel_options={"ARD": True},
+                num_inducing=512, device=device),
+            SVDTransformer(), n_components=D).fit(X, y, max_iters=max_iters)
+        fit_s = time.perf_counter() - t0
+    pred = edr.estimator_.predict(edr._preprocessing_transform(X_test))
+    launches = dict(rbf.LAUNCHES)
+
+    disc = discrepancy(B, edr.components_.T)
+    rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
+    emit(phase="sparse_edr", N=N, Q=Q, num_inducing=512, n_components=D,
+         max_iters=max_iters, fit_seconds=fit_s, elbo_evaluations=evals[0],
+         discrepancy=disc,
+         principal_angles_deg=principal_angles_deg(
+             B, edr.components_.T).tolist(),
+         heldout_rmse=rmse, heldout_y_std=float(np.std(y_test)),
+         launches=launches, peak_mem_gb=_peak_gb(device))
+    check(launches["rbf_grad_mu"] >= 1 and launches["rbf_kernel_matrix"] >= 1,
+          f"G or K did not launch on the sparse EDR path: {launches}")
+    check(edr.components_.shape == (D, Q)
+          and np.isfinite(edr.components_).all(), "bad components")
+    check(np.isfinite(pred).all() and pred.shape == y_test.shape,
+          "bad predictions")
+    check(disc < 0.1, f"sparse EDR discrepancy {disc:.3g} >= 0.1")
+    del edr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -408,10 +746,15 @@ def main():
     phase_nlml()
     phase_small_reference()
     launches = phase_main_path()
+    phase_sgpr()
+    sparse_launches = phase_sparse_edr()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
-         "launches": launches[name], **summary[name]}
+         "launches": launches[name],
+         "launches_by_path": {"main_path": launches[name],
+                              "sparse_edr": sparse_launches[name]},
+         **summary[name]}
         for name, where in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

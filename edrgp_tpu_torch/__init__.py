@@ -3,9 +3,13 @@ processes in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of :mod:`edrgp_tpu`, which stays the reference.  It imports
 neither JAX nor scikit-learn nor the JAX package.  Ported so far: the
-exact-GP EDR main path (RBF kernel, Cholesky NLML with the trace-form
-adjoint, L-BFGS ML-II with restarts, predictive gradients, SVD, the
-iterative and block EDR with normalization).
+exact-GP EDR main path (Cholesky NLML with the trace-form adjoint, L-BFGS
+ML-II with restarts, predictive gradients, SVD, the iterative and block EDR
+with normalization); the kernel zoo (stationary, periodic, linear,
+polynomial, MLP, sums, products, ``active_dims``); prior mean functions;
+save/load; and the sparse regressor (Titsias SGPR with inducing inputs,
+uncertain inputs through the RBF psi statistics) behind
+``models.SparseGaussianProcessRegressor``.
 """
 
 from .edr.base import BaseEDR, BlockEDR, IterativeEDR

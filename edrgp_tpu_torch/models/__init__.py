@@ -1,5 +1,5 @@
 """GP estimators (sklearn interface, without sklearn)."""
 
-from .regression import GaussianProcessRegressor
+from .regression import GaussianProcessRegressor, SparseGaussianProcessRegressor
 
-__all__ = ["GaussianProcessRegressor"]
+__all__ = ["GaussianProcessRegressor", "SparseGaussianProcessRegressor"]

@@ -4,7 +4,8 @@ The port of :class:`edrgp_tpu.models.base._BaseGP`: ``fit(X, y, **opt_kws)``
 builds a kernel from string names and options, creates the model with
 ``_get_model`` and calls ``getattr(model, self.method)(**opt_kws)`` with the
 reference's defaults (``messages=False, max_iters=1000``); ``predict``,
-``predict_variance`` and ``predict_gradient`` return numpy arrays.
+``predict_variance`` and ``predict_gradient`` return numpy arrays; ``save``
+and ``load`` write and read the fitted model's pickle.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 from ..estimator import (BaseEstimator, assert_all_finite, check_array,
                          check_is_fitted, check_X_y)
 from ..ops.kernels import Kernel, make_kernel
+from .state import load_model
 
 __all__ = ["_BaseGP"]
 
@@ -79,3 +81,17 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
     def predict_gradient(self, X):
         X = self._check_predict(X)
         return self.estimator_.predictive_gradients(X)[0][:, :, 0]
+
+    def save(self, model_path):
+        if not model_path.endswith(".pickle"):
+            model_path += ".pickle"
+        self.estimator_.pickle(model_path)
+
+    def load(self, model_path):
+        """Load a fitted model saved with :meth:`save` onto this
+        estimator's ``device`` and return ``self``."""
+        if not model_path.endswith(".pickle"):
+            model_path += ".pickle"
+        self.estimator_ = load_model(model_path, device=self.device)
+        self.n_features_ = int(self.estimator_._X.shape[1])
+        return self

@@ -1,12 +1,18 @@
 """Fitted GP model objects with a GPy-compatible surface.
 
-The port of :mod:`edrgp_tpu.models.state` (exact GP only).  A model is an
-``nn.Module`` whose ``state_dict()`` keys are the JAX package's pytree paths
-(``kernel.variance``, ``kernel.lengthscale``, ``raw_noise``), all in
-unconstrained space; the training data are plain attributes, not buffers.
+The port of :mod:`edrgp_tpu.models.state` (exact GP and SGPR).  A model is
+an ``nn.Module`` whose ``state_dict()`` keys are the JAX package's pytree
+paths (``kernel.variance``, ``kernel.lengthscale``, ``raw_noise``, ``Z``),
+all in unconstrained space but ``Z``; the training data are plain
+attributes, not buffers.  ``pickle``/:func:`load_model` save and restore a
+model as numpy and plain Python, so a pickle holds no tensor on a device.
 """
 
 from __future__ import annotations
+
+import os
+import pickle as _pickle
+import warnings
 
 import numpy as np
 import torch
@@ -15,9 +21,16 @@ from torch import nn
 from ..config import default_dtype, resolve_device
 from ..inference.lbfgs import minimize, minimize_restarts
 from ..ops import exact as _exact
-from ..ops.kernels import Kernel, inv_positive, positive
+from ..ops import sgpr as _sgpr
+from ..ops import uncertain as _uncertain
+from ..ops.kernels import (Kernel, inv_positive, kernel_from_spec,
+                           kernel_spec, positive)
 
-__all__ = ["Normalizer", "ExactGPModel"]
+__all__ = ["Normalizer", "ExactGPModel", "SGPRModel", "load_model"]
+
+#: Prefix of the class name a pickle of this package records, so that
+#: neither package takes the other's pickles for its own.
+_PICKLE_PREFIX = "edrgp_tpu_torch."
 
 
 class Normalizer:
@@ -46,6 +59,96 @@ class Normalizer:
         return g * self.std
 
 
+def _as_numpy(values) -> np.ndarray:
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    return np.asarray(values).reshape(-1)
+
+
+def _autograd_mean_grad(mean_function, X: np.ndarray):
+    """dm/dx at each row of X by autograd, or None when ``mean_function``
+    does not work on a float64 tensor that requires grad (a numpy-only
+    callable raises whatever error, as the JAX package's fallback takes
+    any, or returns something autograd cannot follow).  Each output
+    depends only on its own row, so one backward of the sum gives every
+    row."""
+    x = torch.tensor(X, dtype=torch.float64, requires_grad=True)
+    try:
+        out = mean_function(x)
+    except Exception:
+        return None
+    if not (isinstance(out, torch.Tensor) and out.requires_grad):
+        return None
+    (g,) = torch.autograd.grad(out.reshape(-1).sum(), x)
+    return g.numpy()
+
+
+class _MeanFunctionMixin:
+    """Prior mean-function semantics (GPy ``mean_function``): the GP is fit
+    on the residual y − m(X), and m(x*) is added back to every posterior
+    mean.  ``mean_function`` maps an [N, Q] array to [N] values (numpy or
+    torch; it is called with numpy arrays).
+
+    As in the JAX package (PARITY.md G8), ``m`` acts in the *original*
+    output space under ``normalizer=True``: the residuals are m(X)/σ_y on
+    the normalized scale and m(x*) is added after un-normalization, so far
+    from the data the prediction reverts to m(x*) plus the targets' mean
+    (the normalizer's μ_y), whatever σ_y is.
+    """
+
+    mean_function = None
+
+    def _set_mean_function(self, mean_function) -> None:
+        # Past nn.Module's __setattr__: a module given as the mean function
+        # must not become a submodule whose parameters ML-II would fit.
+        object.__setattr__(self, "mean_function", mean_function)
+
+    def _residual_targets(self, X, y_n):
+        """Subtract m(X)/σ_y from normalized targets."""
+        if self.mean_function is None:
+            return y_n
+        shift = _as_numpy(self.mean_function(np.asarray(X)))
+        return y_n - shift / max(self.normalizer.std, 1e-300)
+
+    def _mean_shift_at(self, Xnew) -> np.ndarray:
+        """m(x*) in the original (unnormalized) output space."""
+        if self.mean_function is None:
+            return np.zeros(np.shape(Xnew)[0])
+        return _as_numpy(self.mean_function(np.asarray(Xnew)))
+
+    def _mean_grad_at(self, Xnew) -> np.ndarray:
+        """dm/dx* [M, Q]: autograd when the callable works on a float64
+        tensor, central differences otherwise (the JAX package's ``eps``)."""
+        if self.mean_function is None:
+            return np.zeros(np.shape(Xnew))
+        Xnew = np.asarray(Xnew, float)
+        g = _autograd_mean_grad(self.mean_function, Xnew)
+        if g is not None:
+            return g
+        eps = 1e-5 * max(1.0, float(np.abs(Xnew).max()))
+        G = np.zeros_like(Xnew)
+        for q in range(Xnew.shape[1]):
+            Xp, Xm = Xnew.copy(), Xnew.copy()
+            Xp[:, q] += eps
+            Xm[:, q] -= eps
+            G[:, q] = (_as_numpy(self.mean_function(Xp))
+                       - _as_numpy(self.mean_function(Xm))) / (2 * eps)
+        return G
+
+
+def _atomic_pickle_dump(state, path: str):
+    """Serialize to a sibling tmp file, then rename: a failed dump never
+    truncates an existing checkpoint."""
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            _pickle.dump(state, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _perturb_inits(state: dict, num: int, generator: torch.Generator,
                    scale: float = 1.0) -> list:
     """``num`` initializations: the given state, then ``num − 1`` copies
@@ -60,13 +163,29 @@ def _perturb_inits(state: dict, num: int, generator: torch.Generator,
     return inits
 
 
-class _BaseModel(nn.Module):
-    """Shared GPy-like surface: optimize / optimize_restarts."""
+class _BaseModel(_MeanFunctionMixin, nn.Module):
+    """Shared GPy-like surface: optimize / optimize_restarts / pickle."""
 
     #: Restarts ``optimize()`` runs by default in float32: the fp32 NLML
     #: surface is multimodal enough that one default-init fit lands in a
     #: wrong basin often (``edrgp_tpu/models/state.py:167``); f64 keeps one.
     _f32_default_restarts = 1
+
+    def _setup(self, X, y_n, kernel: Kernel, noise_var: float, dtype,
+               device) -> None:
+        """Kernel and noise parameters, training data on ``device``."""
+        self.kernel = kernel.to(device=device, dtype=dtype)
+        self.raw_noise = nn.Parameter(inv_positive(
+            torch.tensor(float(noise_var), dtype=dtype, device=device)))
+        self._X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
+        self._y = torch.as_tensor(np.asarray(y_n), dtype=dtype,
+                                  device=device)
+        self._objective = float("nan")
+        self._cache = None
+
+    def _as_input(self, Xnew) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(Xnew), dtype=self._X.dtype,
+                               device=self._X.device)
 
     def _default_tol(self) -> float:
         """Gradient-norm tolerance matched to the working precision: 1e-6
@@ -124,18 +243,90 @@ class _BaseModel(nn.Module):
         return self._finish(res, f"best of {num_restarts} restarts ",
                             verbose or messages)
 
+    # --- persistence ------------------------------------------------------
+    def _pickle_state(self) -> dict:
+        return {
+            "class": _PICKLE_PREFIX + type(self).__name__,
+            "kernel": kernel_spec(self.kernel),
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in self.state_dict().items()},
+            "X": self._X.cpu().numpy(),
+            "y": self._y.cpu().numpy(),
+            "normalizer": self.normalizer,
+            "objective": self._objective,
+            "mean_function": self.mean_function,
+        }
+
+    def _restore(self, state: dict) -> None:
+        """Parameters and switches beyond the kernel and the noise, from
+        :meth:`_pickle_state`'s ``state`` (before ``load_state_dict``)."""
+
+    def pickle(self, path: str):
+        """Save the model to ``path`` (restore it with :func:`load_model`).
+        A mean function that cannot be pickled (a lambda, a closure) is
+        dropped with a ``RuntimeWarning``: the loaded model then predicts
+        without the prior-mean shift."""
+        state = self._pickle_state()
+        mf = state["mean_function"]
+        if mf is not None:
+            try:
+                _pickle.dumps(mf)
+            except (_pickle.PicklingError, AttributeError, TypeError):
+                warnings.warn("mean_function is not picklable; saving the "
+                              "model without it", RuntimeWarning)
+                state["mean_function"] = None
+        _atomic_pickle_dump(state, path)
+
+    # --- prediction -------------------------------------------------------
+    def _moments(self, Xnew: torch.Tensor, include_likelihood: bool):
+        """Posterior (mean [S], var [S]) on the normalized scale."""
+        raise NotImplementedError
+
+    def _gradients(self, Xnew: torch.Tensor, batch: int | None):
+        """(dμ/dx* [S, Q], dvar/dx* [S, Q]) on the normalized scale."""
+        raise NotImplementedError
+
+    def predict(self, Xnew, include_likelihood: bool = True):
+        """(mean [S, 1], var [S, 1]) as numpy, in the original y scale."""
+        Xnew = self._as_input(Xnew)
+        mean, var = self._moments(Xnew, include_likelihood)
+        mean = (self.normalizer.unnorm_mean(mean.cpu().numpy())
+                + self._mean_shift_at(Xnew.cpu().numpy()))
+        var = self.normalizer.unnorm_var(var.cpu().numpy())
+        return mean[:, None], var[:, None]
+
+    def predictive_gradients(self, Xnew, batch: int | None = None):
+        """(dmu [S, Q, 1], dvar [S, Q]) as numpy — GPy's contract.
+
+        ``batch`` chunks the generic paths' test points; None picks a size
+        that bounds the [batch, N] (sparse: [batch, M]) block.
+        """
+        Xnew = self._as_input(Xnew)
+        dmu, dvar = self._gradients(Xnew, batch)
+        dmu = (self.normalizer.unnorm_grad(dmu.cpu().numpy())
+               + self._mean_grad_at(Xnew.cpu().numpy()))
+        dvar = self.normalizer.unnorm_var(dvar.cpu().numpy())
+        return dmu[:, :, None], dvar
+
     @property
     def noise_variance(self) -> float:
-        return float(positive(self.raw_noise))
+        return float(positive(self.raw_noise.detach()))
 
     def get_hyperparameters(self) -> dict:
-        """Constrained-space hyperparameters as plain numpy, keyed like the
-        JAX package's (``['kernel']['variance']``, …, ``['noise']``)."""
+        """Hyperparameters as plain numpy, keyed like the JAX package's
+        (``['kernel']['variance']``, ``['kernel'][0]['variance']`` for the
+        parts of a sum, ``['noise']``): constrained, but the inducing inputs
+        ``['Z']`` as they are."""
         out = {}
         for name, p in self.named_parameters():
-            key = "".join(f"['{part}']" for part in name.split("."))
-            out[key.replace("raw_", "")] = (
-                positive(p.detach()).cpu().numpy())
+            parts = name.split(".")
+            key = "".join(
+                f"[{part}]" if part.isdigit() else f"['{part}']"
+                for i, part in enumerate(parts)
+                if not (part == "kernels" and i + 1 < len(parts)
+                        and parts[i + 1].isdigit()))
+            value = p.detach() if name == "Z" else positive(p.detach())
+            out[key.replace("raw_", "")] = value.cpu().numpy()
         return out
 
 
@@ -146,27 +337,19 @@ class ExactGPModel(_BaseModel):
 
     def __init__(self, X: np.ndarray, y: np.ndarray, kernel: Kernel,
                  normalizer: bool = True, noise_var: float = 1.0,
-                 dtype: torch.dtype | None = None, device=None):
+                 mean_function=None, dtype: torch.dtype | None = None,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
+        self._set_mean_function(mean_function)
         y = np.asarray(y).reshape(-1)
         self.normalizer = Normalizer(y, enabled=bool(normalizer))
-        self.kernel = kernel.to(device=device, dtype=dtype)
-        self.raw_noise = nn.Parameter(inv_positive(
-            torch.tensor(float(noise_var), dtype=dtype, device=device)))
-        self._X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
-        self._y = torch.as_tensor(self.normalizer.normalize(y), dtype=dtype,
-                                  device=device)
-        self._objective = float("nan")
-        self._cache = None
+        y_n = self._residual_targets(X, self.normalizer.normalize(y))
+        self._setup(X, y_n, kernel, noise_var, dtype, device)
 
     def _objective_fn(self):
         return lambda: _exact.nlml(self, self._X, self._y)
-
-    def _as_input(self, Xnew) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(Xnew), dtype=self._X.dtype,
-                               device=self._X.device)
 
     # --- posterior --------------------------------------------------------
     def _posterior(self):
@@ -178,28 +361,129 @@ class ExactGPModel(_BaseModel):
         with torch.no_grad():
             return float(-_exact.nlml(self, self._X, self._y))
 
-    def predict(self, Xnew, include_likelihood: bool = True):
-        """(mean [M, 1], var [M, 1]) as numpy, in the original y scale."""
-        mean, var = _exact.predict(self, self._X, self._posterior(),
-                                   self._as_input(Xnew), include_likelihood)
-        mean = self.normalizer.unnorm_mean(mean.cpu().numpy())
-        var = self.normalizer.unnorm_var(var.cpu().numpy())
-        return mean[:, None], var[:, None]
+    def _moments(self, Xnew, include_likelihood):
+        return _exact.predict(self, self._X, self._posterior(), Xnew,
+                              include_likelihood)
 
-    def predictive_gradients(self, Xnew, batch: int | None = None):
-        """(dmu [M, Q, 1], dvar [M, Q]) as numpy — GPy's contract.
-
-        ``batch`` chunks the generic paths' test points; None picks a size
-        that bounds the [batch, N] block.
-        """
-        Xnew = self._as_input(Xnew)
+    def _gradients(self, Xnew, batch):
         cache = self._posterior()
         if batch is None:
             batch = _exact.grad_batch_size(Xnew.shape[0], self._X.shape[0])
-        dmu = _exact.predict_mean_grad_batched(self, self._X, cache[1], Xnew,
-                                               batch)
-        dvar = _exact.predict_var_grad_batched(self, self._X, cache, Xnew,
-                                               batch)
-        dmu = self.normalizer.unnorm_grad(dmu.cpu().numpy())
-        dvar = self.normalizer.unnorm_var(dvar.cpu().numpy())
-        return dmu[:, :, None], dvar
+        return (_exact.predict_mean_grad_batched(self, self._X, cache[1],
+                                                 Xnew, batch),
+                _exact.predict_var_grad_batched(self, self._X, cache, Xnew,
+                                                batch))
+
+
+class SGPRModel(_BaseModel):
+    """Titsias sparse GP regression: ``GPy.models.SparseGPRegression``
+    equivalent (inducing inputs Z optimized jointly, unconstrained).
+
+    ``X_variance`` (a scalar or [N, Q]) makes the inputs Gaussian,
+    x_n ~ N(X_n, diag(X_variance_n)), and switches the bound and posterior
+    to the psi statistics of :mod:`edrgp_tpu_torch.ops.uncertain` (RBF
+    kernels only).
+    """
+
+    _f32_default_restarts = 5   # fp32 ML-II is multimodal; see _BaseModel
+
+    def __init__(self, X: np.ndarray, y: np.ndarray, kernel: Kernel,
+                 Z: np.ndarray | None = None, num_inducing: int = 10,
+                 X_variance=None, normalizer: bool = True,
+                 noise_var: float = 1.0, mean_function=None,
+                 dtype: torch.dtype | None = None, seed: int = 0,
+                 device=None):
+        super().__init__()
+        if X_variance is not None:
+            _uncertain._check_kernel(kernel)
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
+        self._set_mean_function(mean_function)
+        y = np.asarray(y).reshape(-1)
+        self.normalizer = Normalizer(y, enabled=bool(normalizer))
+        y_n = self._residual_targets(X, self.normalizer.normalize(y))
+        if Z is None:
+            # Random-subset init, GPy's default when only num_inducing given.
+            rng = np.random.default_rng(seed)
+            m = min(int(num_inducing), X.shape[0])
+            Z = np.asarray(X)[rng.permutation(X.shape[0])[:m]]
+        self._setup(X, y_n, kernel, noise_var, dtype, device)
+        self.Z = nn.Parameter(torch.as_tensor(np.asarray(Z), dtype=dtype,
+                                              device=device))
+        self._set_x_variance(X_variance)
+
+    def _set_x_variance(self, X_variance) -> None:
+        self._Xvar = (None if X_variance is None else torch.as_tensor(
+            np.asarray(X_variance), dtype=self._X.dtype,
+            device=self._X.device).expand(self._X.shape).clone())
+
+    def _objective_fn(self):
+        if self._Xvar is None:
+            return lambda: -_sgpr.elbo(self, self._X, self._y)
+        return lambda: -_uncertain.elbo(self, self._X, self._y, self._Xvar)
+
+    def _posterior(self):
+        if self._cache is None:
+            if self._Xvar is None:
+                self._cache = _sgpr.sgpr_posterior(self, self._X, self._y)
+            else:
+                self._cache = _uncertain.posterior(self, self._X, self._y,
+                                                   self._Xvar)
+        return self._cache
+
+    def log_likelihood(self) -> np.ndarray:
+        """The bound as a [[value]] array, as GPy's sparse models give it
+        (read as ``[0][0]`` by the reference's tests)."""
+        with torch.no_grad():
+            return np.array([[-float(self._objective_fn()())]])
+
+    def _pickle_state(self) -> dict:
+        state = super()._pickle_state()
+        if self._Xvar is not None:
+            state["X_variance"] = self._Xvar.cpu().numpy()
+        return state
+
+    def _restore(self, state: dict) -> None:
+        self.Z = nn.Parameter(torch.as_tensor(
+            state["params"]["Z"], device=self._X.device))
+        self._set_x_variance(state.get("X_variance"))
+
+    def _moments(self, Xnew, include_likelihood):
+        return _sgpr.predict(self, self._posterior(), Xnew,
+                             include_likelihood)
+
+    def _gradients(self, Xnew, batch):
+        """dμ/dx* goes through kernel G (C = Z, w = β) on the card for an
+        RBF."""
+        cache = self._posterior()
+        return (_sgpr.predict_mean_grad(self, cache[2], Xnew, batch),
+                _sgpr.predict_var_grad(self, cache, Xnew, batch))
+
+
+_MODEL_CLASSES = {"ExactGPModel": ExactGPModel, "SGPRModel": SGPRModel}
+
+
+def load_model(path: str, device=None) -> _BaseModel:
+    """Restore a model saved by ``pickle`` onto ``device`` (None: CUDA when
+    present), in the dtype it was saved in.  Unpickling runs code named in
+    the file: load only files this package wrote."""
+    with open(path, "rb") as f:
+        state = _pickle.load(f)
+    name = state.get("class", "") if isinstance(state, dict) else ""
+    if not name.startswith(_PICKLE_PREFIX) \
+            or name[len(_PICKLE_PREFIX):] not in _MODEL_CLASSES:
+        raise ValueError(f"{path} is not a model pickle of edrgp_tpu_torch "
+                         f"(class {name!r})")
+    cls = _MODEL_CLASSES[name[len(_PICKLE_PREFIX):]]
+    device = resolve_device(device)
+    obj = cls.__new__(cls)
+    nn.Module.__init__(obj)
+    obj._set_mean_function(state["mean_function"])
+    obj.normalizer = state["normalizer"]
+    obj._setup(state["X"], state["y"], kernel_from_spec(state["kernel"]),
+               1.0, torch.from_numpy(state["X"]).dtype, device)
+    obj._restore(state)
+    obj.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                         for k, v in state["params"].items()})
+    obj._objective = state["objective"]
+    return obj

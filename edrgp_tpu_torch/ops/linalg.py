@@ -1,9 +1,9 @@
 """Cholesky-centric linear algebra with escalating jitter.
 
-The port of the parts of :mod:`edrgp_tpu.ops.linalg` the exact GP needs.  The
-factorizations go to ``torch.linalg`` (cuSOLVER on the card, LAPACK on the
-CPU); the hand-blocked TPU recursions of the JAX package have no
-counterpart here.  Failure of a factorization is read from
+The port of the parts of :mod:`edrgp_tpu.ops.linalg` the exact and sparse
+GPs need.  The factorizations go to ``torch.linalg`` (cuSOLVER on the card,
+LAPACK on the CPU); the hand-blocked TPU recursions of the JAX package have
+no counterpart here.  Failure of a factorization is read from
 ``torch.linalg.cholesky_ex``'s ``info``.
 """
 
@@ -20,9 +20,9 @@ __all__ = ["safe_cholesky", "cholesky_once", "tri_solve", "cho_solve",
 def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
     """(jitter, L): the first jitter of the ladder 0, j0, 10·j0, … (times
     max(mean diag, 1)) for which chol(A + jitter·I) succeeds, and that
-    factor.  After ``MAX_JITTER_TRIES`` failed escalations L is all NaN, as
-    the JAX package's failed factor is, so an objective built on it is
-    non-finite."""
+    factor.  After ``MAX_JITTER_TRIES`` failed escalations jitter is None
+    and L is all NaN, as the JAX package's failed factor is, so an
+    objective built on it is non-finite."""
     if jitter0 is None:
         jitter0 = base_jitter(A.dtype)
     A = A.detach()
@@ -36,7 +36,7 @@ def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
         L, info = torch.linalg.cholesky_ex(A + jitter * eye)
         if int(info) == 0:
             return jitter, L
-    return jitter, torch.full_like(A, float("nan"))
+    return None, torch.full_like(A, float("nan"))
 
 
 def cholesky_once(A: torch.Tensor, jitter0: float | None = None):
@@ -49,17 +49,24 @@ def cholesky_once(A: torch.Tensor, jitter0: float | None = None):
 def safe_cholesky(A: torch.Tensor, jitter0: float | None = None):
     """Lower Cholesky of a PSD matrix with the jitter ladder of
     :func:`jitter_ladder`; differentiable in A when A requires grad (the
-    factor is then recomputed once, with the chosen jitter, on the graph)."""
+    factor is then recomputed once, with the chosen jitter, on the graph).
+    When every escalation fails the factor is all NaN on the graph too, so
+    the objective built on it is non-finite, as the JAX package's is, and
+    L-BFGS backs off instead of the factorization raising."""
     jitter, L = jitter_ladder(A, jitter0)
     if not A.requires_grad or not torch.is_grad_enabled():
         return L
+    if jitter is None:
+        return L + 0.0 * A
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return torch.linalg.cholesky(A + jitter * eye)
 
 
-def tri_solve(L: torch.Tensor, B: torch.Tensor, *,
-              lower: bool = True) -> torch.Tensor:
-    """Solve L X = B for triangular L."""
+def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
+              trans: bool = False) -> torch.Tensor:
+    """Solve L X = B for triangular L (Lᵀ X = B with ``trans``)."""
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=lower)
     return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 

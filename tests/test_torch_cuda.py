@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: each CUDA kernel against its plain version,
-the NLML gradient through the kernels against plain autograd, and a small
-EDR fit on the card against the CPU float64 fit.
+the NLML gradient through the kernels against plain autograd, a small EDR
+fit on the card against the CPU float64 fit, and an SGPR model's gradients
+through kernel G against a CPU float64 model.
 
 Every test needs a card and skips without one.  The file imports no JAX, so
 on the GPU machine (which has no JAX) it runs without the suite's
@@ -298,3 +299,31 @@ def test_cuda_device_resolution_refuses_tf32(card):
             config.resolve_device("cuda")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_cuda_sgpr_gradients_match_cpu_float64(card):
+    """An SGPR fit at N=2,000, M=64 on the card: its predictive gradients
+    go through kernel G and match a float64 CPU model at the same
+    parameters to 1e-4 of the largest entry.  The fit starts from ℓ = 2:
+    from the default ℓ = 1 on [−3, 3]⁸ it ends at the noise-only optimum,
+    where the gradients hold no kernel signal."""
+    from edrgp_tpu_torch.models.state import SGPRModel
+    rng = np.random.default_rng(1)
+    N, M, Q = 2000, 64, 8
+    X = rng.uniform(-3, 3, size=(N, Q)).astype(np.float32)
+    f = np.sin(X[:, 0]) * np.cos(X[:, 1]) + 0.5 * np.tanh(X[:, 2])
+    y = (f + 0.1 * rng.normal(size=N)).astype(np.float32)
+    m = SGPRModel(X, y, RBF(Q, ARD=True, lengthscale=2.0), num_inducing=M,
+                  device=card)
+    m.optimize(max_iters=100, num_restarts=1)
+    assert m.get_hyperparameters()["['kernel']['variance']"] > 0.1
+    cpu = SGPRModel(X, y, RBF(Q, ARD=True), num_inducing=M, device="cpu")
+    cpu.load_state_dict(m.state_dict())
+    rbf.reset_launches()
+    dmu = m.predictive_gradients(X)[0]
+    assert rbf.LAUNCHES["rbf_grad_mu"] == 1
+    want = cpu.predictive_gradients(X)[0]
+    assert np.abs(dmu - want).max() < 1e-4 * np.abs(want).max()
+    m.predict(X[:100])
+    assert rbf.LAUNCHES["rbf_kernel_matrix"] == 1
