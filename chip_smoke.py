@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-GP and sparse EDR paths once on an NVIDIA
-GPU.
+"""Drive the PyTorch port's exact-GP, sparse and SVGP EDR paths once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases, in order, each printing one JSON line:
 
 0. device — the card, PyTorch and CUDA versions, nvcc;
-1. build — compile ``edrgp_tpu_torch/ops/cuda/rbf.cu`` from the checkout;
+1. build — compile ``edrgp_tpu_torch/ops/cuda/rbf.cu`` and the native data
+   loader (``edrgp_tpu_torch/native/dataloader.cpp``) from the checkout;
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card, float32, at the main path's shapes: the largest error relative
    to the plain result's largest entry (limits: K 1e-5, G and A 1e-4), both
@@ -45,7 +46,30 @@ Phases, in order, each printing one JSON line:
    SparseGaussianProcessRegressor(kernels="RBF", kernel_options={"ARD":
    True}, num_inducing=512), SVDTransformer(), n_components=3)`` at
    N=100,000, Q=10 on main_path's data, ``max_iters=200``: kernels G and K
-   must launch in it and the subspace must be recovered (discrepancy < 0.1).
+   must launch in it and the subspace must be recovered (discrepancy < 0.1);
+8. svgp_reference — SVGP at N=4,096, M=64, Q=8 on the card (float32)
+   against the port's CPU float64 at the same parameters, q(u) and 512-row
+   minibatch: the ELBO (1e-4 relative), each parameter's gradient (1e-3 of
+   its largest entry), θ₁ and θ₂ after one natural-gradient step with
+   ρ = 0.5 (1e-3 of their largest entries), ``predict`` and dμ/dx* (1e-4
+   of their largest entries);
+9. svgp_stream — the SVGP half of BASELINE config 5
+   (``benchmarks/baseline_scale_tpu.py:60-125``): N=10,000,000, Q=8 written
+   to a temporary dataset file, ``SVGPModel.from_dataset`` with 512
+   inducing inputs, ``optimize_stream`` over the native loader's 8,192-row
+   batches for 3,000 steps; fit seconds, steps/s, rows/s, the device idle
+   share and the split of a step over a 50-step profiler window, the
+   loader's rows/s alone, peak memory; the RMSE against the noise-free
+   target on 4,000 rows must be below 0.05, kernel K must serve
+   ``predict`` and the native loader the stream;
+10. svgp_edr — the north-star capstone (``benchmarks/edr_scale_tpu.py``) at
+   N=1,048,576, Q=10, a planted 3-D subspace: a streamed SVGP-512 fit
+   (2,000 steps of 4,096 rows), dμ/dx* at every row (one G launch), the
+   eigenvectors of GᵀG; then ``EffectiveDimensionalityReduction(
+   SVGPRegressor(num_inducing=512, batch_size=4096, lr=5e-3),
+   SVDTransformer(), n_components=3).fit(X, y, max_iters=500)`` and a
+   held-out ``predict`` (K); both discrepancies must be below 0.1, G must
+   launch once per fit.
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
 of bound, launches on the main path and, under ``launches_by_path``, on
@@ -172,13 +196,18 @@ def phase_device():
 
 
 def phase_build():
+    from edrgp_tpu_torch import data
     from edrgp_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     _build.load()
     regs = [line.split(":", 1)[1].strip()
             for line in _build.build_log.splitlines() if "Used" in line]
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         library=str(_build.library_path()), ptxas=regs)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = data.build_native()
+    emit(phase="build", seconds=seconds, library=str(_build.library_path()),
+         ptxas=regs, loader_seconds=time.perf_counter() - t0,
+         loader_library=str(loader))
 
 
 def _kernel_case(name, rows, cols, Q, gen):
@@ -211,20 +240,23 @@ def phase_kernels():
     """Kernel vs plain at a ragged shape and the main path's: N=8,192 at
     each Q of the EDR's fits (10, 7, 4, 3), the held-out cross-kernel, G at
     the tall shapes of sparse models' gradients (M=102,400 by N=8,192,
-    M=1,048,576 by N=512: one column split), the sparse paths' shapes (G
-    at 100,000 rows by 512 inducing inputs at the sgpr phase's Q=8 and at
-    each Q of sparse_edr's fits; K(Z, X*) at 512 by 2,000 in the last
-    fit's Q=3), and each kernel at N=8,191 (N % 4 != 0: 4-byte stores for
-    K, 4-byte cp.async loads instead of TMA for A)."""
+    M=1,048,576 by N=512: one column split, at each Q of svgp_edr's fits),
+    the sparse paths' shapes (G at 100,000 rows by 512 inducing inputs at
+    the sgpr phase's Q=8 and at each Q of sparse_edr's fits; K(Z, X*) at
+    512 by 2,000 in the last fit's Q=3 and at 512 by 4,000 in svgp_stream's
+    Q=8), and each kernel at N=8,191 (N % 4 != 0: 4-byte stores for K,
+    4-byte cp.async loads instead of TMA for A)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     qs = (10, 7, 4, 3)
     fits = [(8192, 8192, Q) for Q in qs]
     shapes = {
         "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
-                              (8191, 8191, 10), (512, 2000, 3)],
+                              (8191, 8191, 10), (512, 2000, 3),
+                              (512, 4000, 8)],
         "rbf_grad_mu": [(1000, 1537, 10), *fits, (8191, 8191, 10),
-                        (102400, 8192, 10), (1048576, 512, 10),
+                        (102400, 8192, 10),
+                        *[(1048576, 512, Q) for Q in qs],
                         (100000, 512, 8),
                         *[(100000, 512, Q) for Q in qs]],
         "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10)],
@@ -730,6 +762,304 @@ def phase_sparse_edr(device="cuda", N=100_000, max_iters=200):
     return launches
 
 
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty_cache(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _rel_to_max(got, want):
+    """Largest error relative to the reference's largest entry."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_svgp_reference(device="cuda", N=4096, M=64, Q=8, B=512):
+    """SVGP on the card (float32) against the port's CPU float64 at the
+    same parameters (ℓ = SIGNAL_LENGTHSCALE, σ² = 1, σₙ² = 0.1, the seeded
+    Z), the same q(u) (one full natural-gradient step on the minibatch from
+    N(0, I)) and the same minibatch of B rows."""
+    import torch
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    from edrgp_tpu_torch.ops import svgp
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y, _ = _sgpr_problem(N, Q, np.random.default_rng(4))
+    rng = np.random.default_rng(5)
+    idx = np.sort(rng.choice(N, B, replace=False))
+    Xs = X[np.sort(rng.choice(N, 1000, replace=False))]
+    card, cpu = (SVGPModel(X, y, RBF(Q, ARD=True,
+                                     lengthscale=SIGNAL_LENGTHSCALE),
+                           num_inducing=M, noise_var=0.1, seed=0, device=dev,
+                           dtype=dt)
+                 for dev, dt in ((device, torch.float32),
+                                 ("cpu", torch.float64)))
+    cpu.load_state_dict(card.state_dict())       # the same float32 values
+    q = svgp.natural_gradient_update(cpu, cpu.qstate, cpu._X[idx],
+                                     cpu._y[idx], N, 1.0)
+    card.qstate = svgp.SVGPState(*(t.to(device, torch.float32) for t in q))
+    cpu.qstate = svgp.SVGPState(*(t.to("cpu", torch.float64)
+                                  for t in card.qstate))
+    out = {}
+    for name, gp in (("card", card), ("cpu", cpu)):
+        m, S = svgp.q_from_natural(gp.qstate)
+        gp.zero_grad()
+        elbo = svgp.svgp_elbo(gp, m, S, gp._X[idx], gp._y[idx], N)
+        elbo.backward()
+        step = svgp.natural_gradient_update(gp, gp.qstate, gp._X[idx],
+                                            gp._y[idx], N, 0.5)
+        rbf.reset_launches()
+        mean, var = gp.predict(Xs)
+        dmu = gp.predictive_gradients(Xs)[0][:, :, 0]
+        out[name] = dict(
+            elbo=elbo.item(), launches=dict(rbf.LAUNCHES),
+            grads={k: p.grad.cpu().numpy() for k, p in gp.named_parameters()},
+            theta=[t.cpu().numpy() for t in step], mean=mean, var=var,
+            dmu=dmu)
+    c, r = out["card"], out["cpu"]
+    errs = {
+        "elbo": abs(c["elbo"] - r["elbo"]) / abs(r["elbo"]),
+        **{f"grad[{k}]": _rel_to_max(c["grads"][k], r["grads"][k])
+           for k in r["grads"]},
+        "theta1": _rel_to_max(c["theta"][0], r["theta"][0]),
+        "theta2": _rel_to_max(c["theta"][1], r["theta"][1]),
+        "predict_mean": _rel_to_max(c["mean"], r["mean"]),
+        "predict_var": _rel_to_max(c["var"], r["var"]),
+        "dmu": _rel_to_max(c["dmu"], r["dmu"])}
+    limits = {k: 1e-4 if k in ("elbo", "predict_mean", "predict_var", "dmu")
+              else 1e-3 for k in errs}
+    emit(phase="svgp_reference", N=N, M=M, Q=Q, batch=B,
+         elbo_card=c["elbo"], elbo_cpu_f64=r["elbo"], rel_err=errs,
+         limits=limits, launches=c["launches"])
+    for k, err in errs.items():
+        check(err < limits[k], f"svgp_reference: {k} differs by {err:.3g}")
+    check(c["launches"]["rbf_kernel_matrix"] >= 1
+          and c["launches"]["rbf_grad_mu"] >= 1,
+          f"K or G did not serve the SVGP prediction: {c['launches']}")
+
+
+def _svgp_profile(model, batches, n_total, steps, lr):
+    """Device busy time, host wall time and the device time under each
+    label of ``SVGPModel._step`` and ``optimize_stream`` over ``steps``
+    more steps (the backward is the busy time outside the labels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.optimize_stream(batches, n_total=n_total, steps=steps, lr=lr)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    busy = sum(k.duration for e in cpu_ops for k in e.kernels) / 1e3
+    split = {}
+    for e in cpu_ops:
+        if e.name.startswith("svgp."):
+            split[e.name] = split.get(e.name, 0.0) + e.device_time_total / 1e3
+    split = {k: v / steps for k, v in split.items()}
+    split["backward_and_rest"] = busy / steps - sum(split.values())
+    kernels_per_step = sum(len(e.kernels) for e in cpu_ops) / steps
+    return dict(steps=steps, step_ms=wall_ms / steps,
+                device_busy_ms_per_step=busy / steps,
+                idle_share=1.0 - busy / wall_ms,
+                device_kernels_per_step=kernels_per_step,
+                profile_has_device_time=busy > 0, split_ms_per_step=split)
+
+
+def _dataset_path(name):
+    """A scratch file under the checkout's git-ignored ``build/``."""
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    return os.path.join(scratch, f"{name}-{os.getpid()}.edrg")
+
+
+def phase_svgp_stream(device="cuda", N=10_000_000, Q=8, M=512, steps=3000,
+                      batch=8192, profile_steps=50):
+    """BASELINE config 5's SVGP half in the port: the N=10M streaming fit
+    (``run_svgp_10m_smc`` → ``run_svgp_1m``); the SMC half is not ported."""
+    import torch
+    from edrgp_tpu_torch.data import MMapDataset, write_dataset
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    rng = np.random.default_rng(1)
+    X, y, _ = _sgpr_problem(N, Q, rng)
+    path = _dataset_path("svgp_stream")
+    t0 = time.perf_counter()
+    write_dataset(path, X, y)
+    write_s = time.perf_counter() - t0
+    file_gb = os.path.getsize(path) / 1e9
+    del X, y
+    ds = MMapDataset(path)
+    try:
+        native = ds._handle is not None
+        _peak_gb(device, reset=True)
+        rbf.reset_launches()
+        model = SVGPModel.from_dataset(ds, RBF(Q, ARD=True), num_inducing=M,
+                                       device=device)
+        t0 = time.perf_counter()
+        model.optimize_stream(ds.batches(batch, seed=1), n_total=N,
+                              steps=steps, lr=5e-3)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(rbf.LAUNCHES)
+        elbo = -model._objective
+        hyper = {k: np.asarray(v).tolist() for k, v in
+                 model.get_hyperparameters().items() if k != "['Z']"}
+        idx = np.sort(rng.integers(0, N, 4000))
+        Xt, _ = ds.read_rows(idx)
+        f = np.sin(Xt[:, 0]) * np.cos(Xt[:, 1]) + 0.5 * np.tanh(Xt[:, 2])
+        rbf.reset_launches()
+        pred, var = model.predict(Xt)
+        launches = dict(rbf.LAUNCHES)
+        rmse = float(np.sqrt(np.mean((pred[:, 0] - f) ** 2)))
+        peak = _peak_gb(device)
+        it = ds.batches(batch, seed=2)    # a second stream: a fresh mapping
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            next(it)
+        loader_rows_s = 100 * batch / (time.perf_counter() - t0)
+        it.close()
+        prof = None
+        if torch.device(device).type == "cuda":
+            it = ds.batches(batch, seed=3)
+            prof = _svgp_profile(model, it, N, profile_steps, 5e-3)
+            it.close()
+    finally:
+        ds.close()
+        os.unlink(path)
+    emit(phase="svgp_stream", N=N, Q=Q, num_inducing=M, steps=steps,
+         batch=batch, scan_chunk=16, native_loader=native,
+         file_gb=file_gb, write_seconds=write_s, fit_seconds=fit_s,
+         steps_per_s=steps / fit_s, rows_per_s_through_elbo=steps * batch
+         / fit_s, final_minibatch_elbo=elbo,
+         loader_rows_per_s=loader_rows_s, rmse_vs_truth=rmse,
+         noise_std_truth=0.1, mean_pred_std=float(np.sqrt(var).mean()),
+         launches_fit=fit_launches, launches_predict=launches,
+         hyperparameters=hyper, peak_mem_gb=peak, profile=prof)
+    check(native, "the native loader did not serve the stream")
+    check(np.isfinite(pred).all() and pred.shape == (4000, 1),
+          "bad SVGP predictions")
+    check(rmse < 0.05, f"SVGP RMSE vs truth {rmse:.4g} >= 0.05")
+    check(launches["rbf_kernel_matrix"] >= 1,
+          f"K did not serve the SVGP predict: {launches}")
+    del model
+    _empty_cache(device)
+    return {k: fit_launches[k] + launches[k] for k in launches}
+
+
+def phase_svgp_edr(device="cuda", N=1_048_576, Q=10, M=512, steps=2000,
+                   max_iters=500, batch=4096):
+    """The north-star capstone (``benchmarks/edr_scale_tpu.py``) in the
+    port: its data (``make_data``), the streamed SVGP fit, the gradient
+    extraction at every row, the eigenvectors of GᵀG, then the EDR class
+    pipeline at the same size and a held-out ``predict``.  The class
+    pipeline's fits take 500 steps each, not the benchmark's 1,500: a step
+    takes 13–23 ms on the H100, bound by the host, so its four fits alone
+    took 80–92 s at 1,000–1,500 steps; N, M, Q and the batch are not
+    cut."""
+    import scipy.sparse
+    import torch
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.data import MMapDataset, write_dataset
+    from edrgp_tpu_torch.datasets import get_beta_inputs, get_edr_target
+    from edrgp_tpu_torch.models import SVGPRegressor
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    D = 3
+    rng = np.random.default_rng(0)
+    X = get_beta_inputs(N, Q, rng=rng).astype(np.float32)
+    B = np.linalg.qr(scipy.sparse.random(Q, D, density=0.4,
+                                         random_state=0).toarray())[0]
+    y = get_edr_target(X @ B, sigma=0.1, rng=rng).astype(np.float32)
+    X_test = get_beta_inputs(2000, Q, rng=rng)
+    y_test = get_edr_target(X_test @ B)
+    path = _dataset_path("svgp_edr")
+    write_dataset(path, X, y)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    ds = MMapDataset(path)
+    try:
+        t0 = time.perf_counter()
+        model = SVGPModel.from_dataset(ds, RBF(Q, ARD=True), num_inducing=M,
+                                       seed=0, device=device)
+        model.optimize_stream(ds.batches(batch, seed=1), n_total=N,
+                              steps=steps, lr=5e-3)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+    finally:
+        ds.close()
+        os.unlink(path)
+    before = rbf.LAUNCHES["rbf_grad_mu"]
+    t0 = time.perf_counter()
+    G = model.predictive_gradients(X)[0][:, :, 0]
+    grad_s = time.perf_counter() - t0
+    grad_launches = rbf.LAUNCHES["rbf_grad_mu"] - before
+    t0 = time.perf_counter()
+    w, V = np.linalg.eigh(G.astype(np.float64).T @ G)
+    comps = V[:, ::-1][:, :D]
+    eig_s = time.perf_counter() - t0
+    manual = dict(discrepancy=discrepancy(B, comps),
+                  principal_angles_deg=principal_angles_deg(B, comps).tolist(),
+                  explained_ratio_top3=float(w[::-1][:D].sum() / w.sum()))
+    del model
+    _empty_cache(device)
+
+    with count_calls(SVGPModel, "optimize") as fits:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            SVGPRegressor(num_inducing=M, batch_size=batch, lr=5e-3,
+                          device=device),
+            SVDTransformer(), n_components=D).fit(X, y, max_iters=max_iters)
+        edr_s = time.perf_counter() - t0
+    edr_grad_launches = rbf.LAUNCHES["rbf_grad_mu"] - before - grad_launches
+    before_k = rbf.LAUNCHES["rbf_kernel_matrix"]
+    pred = edr.estimator_.predict(edr._preprocessing_transform(X_test))
+    predict_k = rbf.LAUNCHES["rbf_kernel_matrix"] - before_k
+    launches = dict(rbf.LAUNCHES)
+    comps_edr = edr.components_.T
+    disc_edr = discrepancy(B, comps_edr)
+    rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
+    emit(phase="svgp_edr", N=N, Q=Q, num_inducing=M, n_components=D,
+         steps=steps, max_iters=max_iters, batch=batch,
+         stream_fit_seconds=fit_s, gradient_seconds=grad_s,
+         gradient_rows_per_s=N / grad_s, eigh_seconds=eig_s,
+         manual_pipeline=manual, edr_class_seconds=edr_s, edr_fits=fits[0],
+         edr_class=dict(discrepancy=disc_edr,
+                        principal_angles_deg=principal_angles_deg(
+                            B, comps_edr).tolist(),
+                        subspace_variance_ratio=np.asarray(
+                            edr.subspace_variance_ratio_).tolist()),
+         heldout_rmse=rmse, heldout_y_std=float(np.std(y_test)),
+         launches=launches, launches_gradient_extraction=grad_launches,
+         launches_edr_fits=edr_grad_launches, launches_predict_K=predict_k,
+         peak_mem_gb=_peak_gb(device))
+    check(np.isfinite(G).all() and G.shape == (N, Q), "bad SVGP gradients")
+    check(manual["discrepancy"] < 0.1,
+          f"SVGP EDR discrepancy {manual['discrepancy']:.3g} >= 0.1")
+    check(disc_edr < 0.1, f"SVGP EDR class discrepancy {disc_edr:.3g} >= 0.1")
+    check(np.isfinite(pred).all() and pred.shape == y_test.shape,
+          "bad predictions")
+    check(grad_launches == 1 and edr_grad_launches == fits[0],
+          f"G did not launch once per fit: {grad_launches} in the manual "
+          f"extraction, {edr_grad_launches} in {fits[0]} EDR fits")
+    check(predict_k >= 1, f"K did not serve predict: {launches}")
+    del edr
+    _empty_cache(device)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -748,12 +1078,17 @@ def main():
     launches = phase_main_path()
     phase_sgpr()
     sparse_launches = phase_sparse_edr()
+    phase_svgp_reference()
+    stream_launches = phase_svgp_stream()
+    svgp_edr_launches = phase_svgp_edr()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
          "launches": launches[name],
          "launches_by_path": {"main_path": launches[name],
-                              "sparse_edr": sparse_launches[name]},
+                              "sparse_edr": sparse_launches[name],
+                              "svgp_stream": stream_launches[name],
+                              "svgp_edr": svgp_edr_launches[name]},
          **summary[name]}
         for name, where in KERNELS.items()]}), flush=True)
     print(smi, flush=True)

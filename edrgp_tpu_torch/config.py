@@ -23,12 +23,11 @@ MAX_JITTER_TRIES = 6
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 
-    ``None`` picks CUDA when a card is present, else the CPU.  An explicit
-    CUDA device without a card raises instead of falling back to the CPU.
+    ``None`` means the card, as ``"cuda"`` does: without CUDA both raise
+    instead of falling back to the CPU, which runs only when the caller
+    asks for ``"cpu"``.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not "

@@ -5,8 +5,10 @@ A JAX parameter pytree is a nested dict of arrays, e.g. ``{"kernel":
 name the same tensors ``kernel.variance``, ``kernel.lengthscale`` and
 ``raw_noise`` in their ``state_dict()``.  A sum or product kernel's
 parameters are a tuple of its parts' dicts in JAX and the parts
-``kernels.0``, ``kernels.1``, … of an ``nn.ModuleList`` in the port.  Both
-sides hold unconstrained values, so a round trip is exact.
+``kernels.0``, ``kernels.1``, … of an ``nn.ModuleList`` in the port.  A
+named tuple such as the SVGP's ``SVGPState(theta1, theta2)`` maps by its
+field names.  Both sides hold unconstrained values, so a round trip is
+exact.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ __all__ = ["params_from_jax", "params_to_numpy"]
 
 
 def params_from_jax(params_np, prefix: str = "") -> dict:
-    """Nested dict (or tuple) of arrays with numpy leaves → flat
+    """Nested dict, tuple or named tuple of arrays with numpy leaves → flat
     ``state_dict`` of float64 CPU tensors keyed by dotted paths;
     ``load_state_dict`` casts them to the module's dtype and device."""
-    if isinstance(params_np, (tuple, list)):
+    if hasattr(params_np, "_asdict"):
+        items = params_np._asdict().items()
+    elif isinstance(params_np, (tuple, list)):
         items = ((f"kernels.{i}", v) for i, v in enumerate(params_np))
     else:
         items = params_np.items()

@@ -30,7 +30,8 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
     kernel_options : dict or list of dict, optional — per-kernel options,
         e.g. ``{"ARD": True}``.
     method : {'optimize', 'optimize_restarts'} — fit method on the model.
-    device : torch device the model lives on (None: CUDA when present).
+    device : torch device the model lives on (None: the card; "cpu" only
+        when asked for).
     """
 
     def fit(self, X, y, **opt_kws):

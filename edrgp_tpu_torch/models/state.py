@@ -464,8 +464,8 @@ _MODEL_CLASSES = {"ExactGPModel": ExactGPModel, "SGPRModel": SGPRModel}
 
 
 def load_model(path: str, device=None) -> _BaseModel:
-    """Restore a model saved by ``pickle`` onto ``device`` (None: CUDA when
-    present), in the dtype it was saved in.  Unpickling runs code named in
+    """Restore a model saved by ``pickle`` onto ``device`` (None: the
+    card), in the dtype it was saved in.  Unpickling runs code named in
     the file: load only files this package wrote."""
     with open(path, "rb") as f:
         state = _pickle.load(f)

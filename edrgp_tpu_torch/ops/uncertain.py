@@ -19,6 +19,15 @@ whose [rows, M, M] terms hold about 2²⁶ entries
 chunk's terms recomputed in the backward instead of kept
 (``torch.utils.checkpoint``), so the live memory stays at one chunk's in
 both directions.  It is the same sum, so the same function.
+
+The bound and the posterior are evaluated in float64 whatever the model's
+working type (:func:`_common` casts its inputs; the bound and the cache come
+back in the working type, and gradients reach float32 parameters through
+the casts).  In float32, L⁻¹Psi2L⁻ᵀ amplifies the rounding of Kuu and Psi2
+until B = I + L⁻¹Psi2L⁻ᵀ/σ² loses about half of its smallest eigenvalue
+(which is at least 1): at N=3,000, M=128 the float32 bound of either
+package can stand far from the float64 one, and a float32 fit climbs that
+error (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -107,8 +116,9 @@ def _common(gp, X, y, X_variance):
     With X_variance → 0 this reduces exactly to the certain-input SGPR
     factorization (Psi1 → Kfu, Psi2 → Kuf Kfu).
     """
-    Z = gp.Z
-    sigma2 = noise_variance(gp)
+    X, y, X_variance = (t.to(torch.float64) for t in (X, y, X_variance))
+    Z = gp.Z.to(torch.float64)
+    sigma2 = noise_variance(gp).to(torch.float64)
     psi0, Psi1, Psi2 = psi_statistics(gp.kernel, X, X_variance, Z)
     L = safe_cholesky(gp.kernel.K(Z, Z))
     LiP2 = tri_solve(L, Psi2, lower=True)                         # L⁻¹ Psi2
@@ -125,12 +135,14 @@ def elbo(gp, X, y, X_variance) -> torch.Tensor:
     """Collapsed uncertain-input lower bound on log p(y) (to MAXIMIZE)."""
     n = X.shape[0]
     L, LB, c, A2, psi0, sigma2 = _common(gp, X, y, X_variance)
-    return (-0.5 * n * (_LOG2PI + torch.log(sigma2))
-            - torch.log(LB.diagonal()).sum()
-            - 0.5 * (y @ y) / sigma2
-            + 0.5 * (c * c).sum()
-            - 0.5 * psi0 / sigma2
-            + 0.5 * torch.trace(A2))
+    y64 = y.to(torch.float64)
+    bound = (-0.5 * n * (_LOG2PI + torch.log(sigma2))
+             - torch.log(LB.diagonal()).sum()
+             - 0.5 * (y64 @ y64) / sigma2
+             + 0.5 * (c * c).sum()
+             - 0.5 * psi0 / sigma2
+             + 0.5 * torch.trace(A2))
+    return bound.to(X.dtype)
 
 
 @torch.no_grad()
@@ -141,4 +153,4 @@ def posterior(gp, X, y, X_variance):
     L, LB, c, _, _, _ = _common(gp, X, y, X_variance)
     tmp = tri_solve(LB, c, lower=True, trans=True)
     beta = tri_solve(L, tmp, lower=True, trans=True)[:, 0]
-    return L, LB, beta
+    return tuple(t.to(X.dtype) for t in (L, LB, beta))

@@ -35,7 +35,7 @@ setup(
     license="MIT",
     packages=find_packages(include=["edrgp_tpu", "edrgp_tpu.*",
                                     "edrgp_tpu_torch", "edrgp_tpu_torch.*"]),
-    package_data={"edrgp_tpu_torch": ["ops/cuda/*.cu"]},
+    package_data={"edrgp_tpu_torch": ["ops/cuda/*.cu", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

@@ -327,3 +327,110 @@ def test_cuda_sgpr_gradients_match_cpu_float64(card):
     assert np.abs(dmu - want).max() < 1e-4 * np.abs(want).max()
     m.predict(X[:100])
     assert rbf.LAUNCHES["rbf_kernel_matrix"] == 1
+
+
+def _svgp_problem(N, Q, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3, 3, size=(N, Q)).astype(np.float32)
+    f = np.sin(X[:, 0]) * np.cos(X[:, 1]) + 0.5 * np.tanh(X[:, 2])
+    return X, (f + 0.1 * rng.normal(size=N)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_svgp_matches_cpu_float64(card):
+    """SVGP at N=1,024, M=32, Q=8 from ℓ = 2: the card (float32) against a
+    CPU float64 model holding the same parameters, q(u) (one full
+    natural-gradient step on the minibatch) and 256-row minibatch.  The
+    ELBO to 1e-4 relative, each gradient and θ₁, θ₂ after a step with
+    ρ = 0.5 to 1e-3 of their largest entries, predict and dμ/dx* (through
+    kernels K and G) to 1e-4."""
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    from edrgp_tpu_torch.ops import svgp
+    N, Q = 1024, 8
+    X, y = _svgp_problem(N, Q, 2)
+    idx = np.sort(np.random.default_rng(3).choice(N, 256, replace=False))
+    models = [SVGPModel(X, y, RBF(Q, ARD=True, lengthscale=2.0),
+                        num_inducing=32, noise_var=0.1, device=dev,
+                        dtype=dt)
+              for dev, dt in ((card, torch.float32), ("cpu", torch.float64))]
+    models[1].load_state_dict(models[0].state_dict())
+    cpu = models[1]
+    q = svgp.natural_gradient_update(cpu, cpu.qstate, cpu._X[idx],
+                                     cpu._y[idx], N, 1.0)
+    models[0].qstate = svgp.SVGPState(*(t.float().to(card) for t in q))
+    cpu.qstate = svgp.SVGPState(*(t.cpu().double()
+                                  for t in models[0].qstate))
+    out = []
+    for gp in models:
+        m, S = svgp.q_from_natural(gp.qstate)
+        elbo = svgp.svgp_elbo(gp, m, S, gp._X[idx], gp._y[idx], N)
+        elbo.backward()
+        step = svgp.natural_gradient_update(gp, gp.qstate, gp._X[idx],
+                                            gp._y[idx], N, 0.5)
+        rbf.reset_launches()
+        out.append((elbo.item(),
+                    [p.grad.cpu().double() for p in gp.parameters()],
+                    [t.cpu().double() for t in step],
+                    [torch.from_numpy(a).double()
+                     for a in (*gp.predict(X[:300]),
+                               gp.predictive_gradients(X[:300])[0])],
+                    dict(rbf.LAUNCHES)))
+    (e, grads, theta, pred, launches), (e0, grads0, theta0, pred0, _) = out
+    assert abs(e - e0) < 1e-4 * abs(e0)
+    for a, b in zip(grads + theta, grads0 + theta0):
+        assert _rel(a, b) < 1e-3
+    for a, b in zip(pred, pred0):
+        assert _rel(a, b) < 1e-4
+    assert launches["rbf_kernel_matrix"] == 1
+    assert launches["rbf_grad_mu"] == 1
+
+
+class _SynchronousFeed:
+    """Each chunk to the card in one synchronous copy from pageable memory."""
+
+    def __init__(self, device, dtype):
+        self.device, self.dtype = device, dtype
+
+    def put(self, Xc, yc):
+        return (torch.as_tensor(Xc, dtype=self.dtype, device=self.device),
+                torch.as_tensor(yc, dtype=self.dtype, device=self.device))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_feed_is_the_synchronous_feed(card, monkeypatch):
+    """optimize_stream's pinned, double-buffered chunks give the same bits
+    as the same 40 steps fed one synchronous copy at a time: a refill of a
+    buffer whose copy were still in flight would change a batch."""
+    from edrgp_tpu_torch.models import svgp as svgp_models
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    X, y = _svgp_problem(4096, 4, 5)
+    rng = np.random.default_rng(6)
+    batches = [(X[i], y[i]) for i in (rng.integers(0, 4096, 512)
+                                      for _ in range(40))]
+    states = []
+    for feed in (None, _SynchronousFeed):
+        if feed is not None:
+            monkeypatch.setattr(svgp_models, "_ChunkFeed", feed)
+        m = SVGPModel(X, y, RBF(4, ARD=True), num_inducing=64, device=card)
+        m.optimize_stream(iter(batches), n_total=4096, steps=40, lr=1e-2,
+                          scan_chunk=3)
+        states.append([t.clone() for t in (*m.state_dict().values(),
+                                           *m.qstate)])
+    assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 4, 3])
+def test_cuda_grad_mu_svgp_capstone_shape(card, Q):
+    """G at the capstone's 1,048,576 rows by 512 inducing inputs, at the Q
+    of each EDR fit after the first (Q=10 is in chip_smoke.py's kernels
+    phase), against its plain version to 1e-4 of the largest entry."""
+    g = torch.Generator(device=card).manual_seed(Q)
+    Xn = torch.randn(1 << 20, Q, generator=g, device=card)
+    Z = torch.randn(512, Q, generator=g, device=card)
+    w = torch.randn(512, generator=g, device=card)
+    ls = torch.full((Q,), Q ** 0.5, device=card)
+    rbf.reset_launches()
+    G = rbf.rbf_grad_mu(Xn, Z, w, ls, 1.3)
+    assert rbf.LAUNCHES["rbf_grad_mu"] == 1
+    assert _rel(G, rbf.rbf_grad_mu_plain(Xn, Z, w, ls, 1.3)) < 1e-4

@@ -16,10 +16,11 @@ from edrgp_tpu.ops import exact as jexact
 from edrgp_tpu.ops import kernels as jkernels
 from edrgp_tpu.ops import linalg as jlinalg
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
-from edrgp_tpu_torch import config
+from edrgp_tpu_torch import config, models
 from edrgp_tpu_torch.convert import params_from_jax, params_to_numpy
 from edrgp_tpu_torch.inference import lbfgs
-from edrgp_tpu_torch.models.state import ExactGPModel
+from edrgp_tpu_torch.models.state import ExactGPModel, SGPRModel, load_model
+from edrgp_tpu_torch.models.svgp import SVGPModel
 from edrgp_tpu_torch.ops import exact, linalg
 from edrgp_tpu_torch.ops.kernels import RBF
 
@@ -224,9 +225,10 @@ def test_restarts_are_seeded_and_keep_the_best():
 def test_device_resolution_and_matmul_precision():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a card")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        config.resolve_device("cuda")
-    assert config.resolve_device(None).type == "cpu"
+    for device in ("cuda", None):         # None means the card too
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            config.resolve_device(device)
+    assert config.resolve_device("cpu").type == "cpu"
     assert config.default_dtype("cpu") == torch.float64
     assert config.default_dtype("cuda") == torch.float32
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -235,3 +237,26 @@ def test_device_resolution_and_matmul_precision():
             config.check_matmul_precision()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("entry", [
+    "ExactGPModel", "SGPRModel", "SVGPModel", "GaussianProcessRegressor",
+    "SparseGaussianProcessRegressor", "SVGPRegressor", "load_model"])
+def test_entry_points_without_a_device_refuse_the_cpu(tmp_path, entry):
+    """No device means the card: without CUDA each entry point raises
+    instead of running on the CPU, which it does only when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    X = np.random.default_rng(0).normal(size=(12, 2))
+    y = X[:, 0]
+    path = str(tmp_path / "m.pickle")
+    ExactGPModel(X, y, RBF(2), device="cpu").pickle(path)
+    calls = {
+        "ExactGPModel": lambda: ExactGPModel(X, y, RBF(2)),
+        "SGPRModel": lambda: SGPRModel(X, y, RBF(2), num_inducing=4),
+        "SVGPModel": lambda: SVGPModel(X, y, RBF(2), num_inducing=4),
+        "load_model": lambda: load_model(path),
+    }
+    call = calls.get(entry, lambda: getattr(models, entry)().fit(X, y))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
