@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-GP, sparse and SVGP EDR paths once on an
-NVIDIA GPU.
+"""Drive the PyTorch port's exact-GP, sparse, SVGP, classifier and
+heteroscedastic EDR paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -69,11 +69,46 @@ Phases, in order, each printing one JSON line:
    SVGPRegressor(num_inducing=512, batch_size=4096, lr=5e-3),
    SVDTransformer(), n_components=3).fit(X, y, max_iters=500)`` and a
    held-out ``predict`` (K); both discrepancies must be below 0.1, G must
-   launch once per fit.
+   launch once per fit;
+11. cls_reference — the four classifiers on the card (float32) against the
+   port's CPU float64 at the same fixed parameters, on main_path's
+   generator with labels 1[f > median f]: VI and EP at N=1,024 (VI's
+   state is N(N+1)/2 = 524,800 parameters, so the full VI model runs
+   here only), sparse VI (probit and logit) and EP-DTC at N=2,000, M=64;
+   the bound or log Z_EP within 1e-4 relative (EP 1e-3: float32 stops
+   its sites at 1e-5), each parameter's gradient within 1e-3 of its
+   largest entry, ``predict`` P(y=1) and dμ/dx* within 1e-4 of theirs;
+   G and K must serve the card's predictions;
+12. cls_ep_edr — ``EffectiveDimensionalityReduction(
+   GaussianProcessClassifier(kernels="RBF", kernel_options={"ARD": True},
+   inference="ep"), SVDTransformer(), n_components=3)`` at N=4,096,
+   Q=10, ``max_iters=100``: discrepancy < 0.1, held-out accuracy on 4,000
+   rows > 0.85, G once per fit, K in every EP site loop; fit seconds,
+   L-BFGS evaluations per fit, EP iterations per evaluation, ms per EP
+   iteration, and the device idle share of one evaluation;
+13. cls_sparse_edr — the same EDR over
+   ``SparseGaussianProcessClassifier(num_inducing=512)`` (VI, probit) at
+   N=100,000, Q=10, ``max_iters=200``, then one EP-DTC fit at N=100,000,
+   M=512, ``max_iters=50`` with dμ/dx* at every row and GᵀG's
+   eigenvectors: both discrepancies < 0.1, both held-out accuracies >
+   0.85, G once per fit, K in ``predict_proba`` and in every EP-DTC site
+   loop, a save/load round trip on the card that predicts the same bits;
+   ms per EP-DTC iteration; the launches count the VI EDR and the EP-DTC
+   fit, not the timed bound evaluations between them;
+14. het_reference — the per-point-noise NLML and its gradients at
+   N=1,000 on the card (K forward, A backward) against the port's CPU
+   float64 (value 1e-4 relative, gradients 1e-3 of their largest entry);
+15. het_edr — EDR over ``GaussianProcessHeteroscedasticRegressor(
+   kernels="RBF", kernel_options={"ARD": True}, Y_metadata={
+   "output_index": row mod 4})`` at N=8,192, Q=10, noise std per group
+   0.02 / 0.05 / 0.1 / 0.2 × std(f), ``max_iters=200``: discrepancy < 0.1,
+   each learned group noise variance within a factor of 1.5 of its truth,
+   A and K in every NLML evaluation, G once per fit.
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
 of bound, launches on the main path and, under ``launches_by_path``, on
-each path; ``library_ms`` is null because no single PyTorch call computes
+each EDR path (main_path, sparse_edr, svgp_stream, svgp_edr, cls_ep_edr,
+cls_sparse_edr, het_edr); ``library_ms`` is null because no single PyTorch call computes
 any of the three functions), the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Any failure raises and exits non-zero; so does a machine without
@@ -244,17 +279,26 @@ def phase_kernels():
     the sparse paths' shapes (G at 100,000 rows by 512 inducing inputs at
     the sgpr phase's Q=8 and at each Q of sparse_edr's fits; K(Z, X*) at
     512 by 2,000 in the last fit's Q=3 and at 512 by 4,000 in svgp_stream's
-    Q=8), and each kernel at N=8,191 (N % 4 != 0: 4-byte stores for K,
-    4-byte cp.async loads instead of TMA for A)."""
+    Q=8), each kernel at N=8,191 (N % 4 != 0: 4-byte stores for K,
+    4-byte cp.async loads instead of TMA for A), and the classifiers'
+    shapes: K and G at 4,096² at each Q of cls_ep_edr's fits (its site
+    loops' and caches' K(X, X) and its gradients), K(X, X*) at 4,096 by
+    4,000 and K(Z, X*) at 512 by 4,000 in Q=3 (their held-out
+    predictions), the EP-DTC fit's K(Z, X) at 512 by 100,000 (its site
+    loops and cache) and K(Z, X*) at 512 by 4,000 (its predictions), both
+    in Q=10; het_edr runs at main_path's 8,192² shapes."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     qs = (10, 7, 4, 3)
     fits = [(8192, 8192, Q) for Q in qs]
+    ep_fits = [(4096, 4096, Q) for Q in qs]
     shapes = {
         "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
                               (8191, 8191, 10), (512, 2000, 3),
-                              (512, 4000, 8)],
-        "rbf_grad_mu": [(1000, 1537, 10), *fits, (8191, 8191, 10),
+                              (512, 4000, 8), *ep_fits, (4096, 4000, 3),
+                              (512, 4000, 3), (512, 100000, 10),
+                              (512, 4000, 10)],
+        "rbf_grad_mu": [(1000, 1537, 10), *fits, *ep_fits, (8191, 8191, 10),
                         (102400, 8192, 10),
                         *[(1048576, 512, Q) for Q in qs],
                         (100000, 512, 8),
@@ -466,21 +510,45 @@ def _peak_gb(device, reset=False):
 
 
 @contextlib.contextmanager
-def count_calls(module, name):
-    """Count the calls of ``module.name`` made inside the block (the
-    models look it up there at each evaluation)."""
+def count_calls(module, name, keep=None):
+    """Record each call of ``module.name`` made inside the block (the
+    models look it up there at each evaluation): a list with one
+    (``keep(result)`` or None, host ms) per call."""
     fn = getattr(module, name)
-    calls = [0]
+    calls = []
 
     def counted(*args, **kwargs):
-        calls[0] += 1
-        return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        calls.append((keep(out) if keep else None,
+                      1e3 * (time.perf_counter() - t0)))
+        return out
 
     setattr(module, name, counted)
     try:
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+def _profiled(fn, reps=1):
+    """Run ``fn`` ``reps`` times under torch.profiler with the host clock
+    around the runs: (the CPU-side events, wall ms per run, device busy ms
+    per run: the time of the kernels those events launched)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    busy = sum(k.duration for e in cpu_ops for k in e.kernels) / 1e3
+    return cpu_ops, wall / reps, busy / reps
 
 
 def _sgpr_problem(n, q, rng):
@@ -535,7 +603,7 @@ def phase_sgpr(device="cuda", N=100_000, M=512, Q=8, max_iters=200):
     peak = _peak_gb(device)
     bitwise = _save_load_bitwise(model, X[idx], device)
     emit(phase="sgpr", N=N, Q=Q, num_inducing=M, max_iters=max_iters,
-         fit_seconds=fit_s, elbo_evaluations=evals[0],
+         fit_seconds=fit_s, elbo_evaluations=len(evals),
          elbo=float(model.log_likelihood()[0][0]), rmse_vs_truth=rmse,
          noise_std_truth=0.1, mean_pred_std=float(np.sqrt(var).mean()),
          gradients_ms=grad_ms, launches_fit=fit_launches,
@@ -562,9 +630,7 @@ def profile_sgpr_elbo(model, reps=3):
     """torch.profiler split of one ELBO value+grad: device time of the
     kernels launched under each of ``ops/sgpr.py``'s labels, the rest of
     the forward, and the backward (all device time outside the forward)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from edrgp_tpu_torch.ops import sgpr
 
     def step():
@@ -574,13 +640,7 @@ def profile_sgpr_elbo(model, reps=3):
         loss.backward()
 
     ms = cuda_ms(step, reps)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    busy = sum(k.duration for e in cpu_ops for k in e.kernels) / reps / 1e3
+    cpu_ops, _, busy = _profiled(step, reps)
     split = {}
     for e in cpu_ops:
         if e.name.startswith("sgpr.") or e.name == "elbo.forward":
@@ -744,7 +804,7 @@ def phase_sparse_edr(device="cuda", N=100_000, max_iters=200):
     disc = discrepancy(B, edr.components_.T)
     rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
     emit(phase="sparse_edr", N=N, Q=Q, num_inducing=512, n_components=D,
-         max_iters=max_iters, fit_seconds=fit_s, elbo_evaluations=evals[0],
+         max_iters=max_iters, fit_seconds=fit_s, elbo_evaluations=len(evals),
          discrepancy=disc,
          principal_angles_deg=principal_angles_deg(
              B, edr.components_.T).tolist(),
@@ -848,18 +908,9 @@ def _svgp_profile(model, batches, n_total, steps, lr):
     """Device busy time, host wall time and the device time under each
     label of ``SVGPModel._step`` and ``optimize_stream`` over ``steps``
     more steps (the backward is the busy time outside the labels)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.optimize_stream(batches, n_total=n_total, steps=steps, lr=lr)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    busy = sum(k.duration for e in cpu_ops for k in e.kernels) / 1e3
+    cpu_ops, wall_ms, busy = _profiled(
+        lambda: model.optimize_stream(batches, n_total=n_total, steps=steps,
+                                      lr=lr))
     split = {}
     for e in cpu_ops:
         if e.name.startswith("svgp."):
@@ -1035,7 +1086,7 @@ def phase_svgp_edr(device="cuda", N=1_048_576, Q=10, M=512, steps=2000,
          steps=steps, max_iters=max_iters, batch=batch,
          stream_fit_seconds=fit_s, gradient_seconds=grad_s,
          gradient_rows_per_s=N / grad_s, eigh_seconds=eig_s,
-         manual_pipeline=manual, edr_class_seconds=edr_s, edr_fits=fits[0],
+         manual_pipeline=manual, edr_class_seconds=edr_s, edr_fits=len(fits),
          edr_class=dict(discrepancy=disc_edr,
                         principal_angles_deg=principal_angles_deg(
                             B, comps_edr).tolist(),
@@ -1051,11 +1102,409 @@ def phase_svgp_edr(device="cuda", N=1_048_576, Q=10, M=512, steps=2000,
     check(disc_edr < 0.1, f"SVGP EDR class discrepancy {disc_edr:.3g} >= 0.1")
     check(np.isfinite(pred).all() and pred.shape == y_test.shape,
           "bad predictions")
-    check(grad_launches == 1 and edr_grad_launches == fits[0],
+    check(grad_launches == 1 and edr_grad_launches == len(fits),
           f"G did not launch once per fit: {grad_launches} in the manual "
-          f"extraction, {edr_grad_launches} in {fits[0]} EDR fits")
+          f"extraction, {edr_grad_launches} in {len(fits)} EDR fits")
     check(predict_k >= 1, f"K did not serve predict: {launches}")
     del edr
+    _empty_cache(device)
+    return launches
+
+
+def _edr_problem(N, Q=10, D=3, n_test=2000):
+    """main_path's generator: beta inputs, a planted D-dimensional subspace
+    B, y = get_edr_target(X·B, σ=0.1); held-out rows with the noise-free
+    target."""
+    from edrgp_tpu_torch.datasets import get_beta_inputs, get_edr_target
+    rng = np.random.default_rng(0)
+    X = get_beta_inputs(N, Q, rng=rng)
+    B = np.linalg.qr(rng.normal(size=(Q, D)))[0]
+    y = get_edr_target(X @ B, sigma=0.1, rng=rng)
+    X_test = get_beta_inputs(n_test, Q, rng=rng)
+    return X, y, B, X_test, get_edr_target(X_test @ B)
+
+
+def _cls_problem(N, n_test=4000):
+    """Labels 1[f > median f] on main_path's generator (f with its noise),
+    and held-out labels of the noise-free target at the same threshold."""
+    X, f, B, X_test, f_test = _edr_problem(N, n_test=n_test)
+    cut = np.median(f)
+    return (X, (f > cut).astype(int), B, X_test,
+            (f_test > cut).astype(int))
+
+
+def _site_stats(calls):
+    """EP iterations and host ms per iteration of recorded site loops."""
+    iters = [c[0] for c in calls]
+    return dict(site_loops=len(calls),
+                ep_iters_per_evaluation=dict(
+                    mean=float(np.mean(iters)), min=int(min(iters)),
+                    max=int(max(iters))),
+                ms_per_ep_iteration=sum(c[1] for c in calls) / sum(iters))
+
+
+def _idle_share(fn, reps=2):
+    """(wall ms per call, device busy ms per call, idle share) of ``fn``
+    over ``reps`` calls under torch.profiler (host clock around them)."""
+    _, wall, busy = _profiled(fn, reps)
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=1.0 - busy / wall,
+                profile_has_device_time=busy > 0)
+
+
+def phase_cls_reference(device="cuda", N_full=1024, N_sparse=2000, M=64,
+                        Q=10):
+    """The four classifiers on the card (float32) against the port's CPU
+    float64 at the same fixed parameters (ℓ = 1, σ² = 1, seeded Z, and for
+    VI a seeded m and tril): the bound or log Z_EP (1e-4 relative; 1e-3 for
+    EP, whose float32 tolerance stops the sites earlier), each parameter's
+    gradient (1e-3 of its largest entry), ``predict`` P(y=1) and dμ/dx*
+    (1e-4 of their largest entries)."""
+    import torch
+    from edrgp_tpu_torch.models import cls_state
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    cases = [("VGPClassificationModel", N_full, {}),
+             ("EPClassificationModel", N_full, {}),
+             ("SparseVGPClassificationModel", N_sparse,
+              {"num_inducing": M, "likelihood": "probit"}),
+             ("SparseVGPClassificationModel", N_sparse,
+              {"num_inducing": M, "likelihood": "logit"}),
+             ("SparseEPClassificationModel", N_sparse, {"num_inducing": M})]
+    rows = []
+    for name, N, kw in cases:
+        X, y, _, Xs, _ = _cls_problem(N, n_test=1000)
+        cls = getattr(cls_state, name)
+        card = cls(X, y, RBF(Q, ARD=True), device=device, **kw)
+        rng = np.random.default_rng(7)
+        with torch.no_grad():
+            if hasattr(card, "m"):
+                card.m.copy_(torch.as_tensor(
+                    0.5 * rng.normal(size=card.m.shape)))
+                card.tril.add_(torch.as_tensor(
+                    0.05 * rng.normal(size=card.tril.shape),
+                    dtype=card.tril.dtype, device=card.tril.device))
+        cpu = cls(X, y, RBF(Q, ARD=True), device="cpu", **kw)
+        cpu.load_state_dict(card.state_dict())     # the same float32 values
+        out = {}
+        for label, gp in (("card", card), ("cpu", cpu)):
+            gp.zero_grad()
+            loss = gp._objective_fn()()
+            loss.backward()
+            rbf.reset_launches()
+            proba = gp.predict(Xs)[0]
+            dmu = gp.predictive_gradients(Xs)[0][:, :, 0]
+            out[label] = dict(
+                value=-loss.item(), launches=dict(rbf.LAUNCHES), proba=proba,
+                dmu=dmu, grads={k: p.grad.double().cpu().numpy()
+                                for k, p in gp.named_parameters()})
+        c, r = out["card"], out["cpu"]
+        ep = "EP" in name
+        errs = {"value": abs(c["value"] - r["value"]) / abs(r["value"]),
+                **{f"grad[{k}]": _rel_to_max(c["grads"][k], r["grads"][k])
+                   for k in r["grads"]},
+                "predict_proba": _rel_to_max(c["proba"], r["proba"]),
+                "dmu": _rel_to_max(c["dmu"], r["dmu"])}
+        limits = {k: (1e-3 if ep else 1e-4) if k == "value"
+                  else 1e-3 if k.startswith("grad") else 1e-4 for k in errs}
+        row = dict(model=name, N=N, **kw, value_card=c["value"],
+                   value_cpu_f64=r["value"], rel_err=errs, limits=limits,
+                   launches=c["launches"],
+                   parameters=sum(p.numel() for p in card.parameters()))
+        rows.append(row)
+        emit(phase="cls_reference", **row)
+        for k, err in errs.items():
+            check(err < limits[k], f"cls_reference {name} {kw}: {k} differs "
+                  f"by {err:.3g}")
+        check(c["launches"]["rbf_grad_mu"] == 1
+              and c["launches"]["rbf_kernel_matrix"] >= 1,
+              f"cls_reference {name}: G or K did not launch: {c['launches']}")
+        del card, cpu
+        _empty_cache(device)
+    return rows
+
+
+def phase_cls_ep_edr(device="cuda", N=4096, max_iters=100):
+    """EDR over the EP classifier (GPy's inference) at N=4,096, Q=10."""
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.models import GaussianProcessClassifier
+    from edrgp_tpu_torch.models.cls_state import EPClassificationModel
+    from edrgp_tpu_torch.ops import ep
+    from edrgp_tpu_torch.ops.cuda import rbf
+    D = 3
+    X, y, B, X_test, y_test = _cls_problem(N)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(EPClassificationModel, "optimize") as fits, \
+            count_calls(ep, "ep_site_loop",
+                        keep=lambda state: state.iters) as sites:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            GaussianProcessClassifier(kernels="RBF",
+                                      kernel_options={"ARD": True},
+                                      inference="ep", device=device),
+            SVDTransformer(), n_components=D).fit(X, y, max_iters=max_iters)
+        fit_s = time.perf_counter() - t0
+    fit_launches = dict(rbf.LAUNCHES)
+    Xt = edr._preprocessing_transform(X_test)
+    acc = float(np.mean(edr.estimator_.predict(Xt) == y_test))
+    launches = dict(rbf.LAUNCHES)
+    disc = discrepancy(B, edr.components_.T)
+    model = edr.estimator_.estimator_
+    # one objective evaluation (site loop + energy value and gradient) at
+    # the last fit's parameters, under the profiler
+    obj = model._objective_fn()
+
+    def evaluation():
+        model.zero_grad()
+        obj().backward()
+
+    idle = _idle_share(evaluation) if device == "cuda" else None
+    stats = _site_stats(sites)
+    evals = stats["site_loops"] - len(fits)     # one ep_fit per fit's cache
+    emit(phase="cls_ep_edr", N=N, Q=X.shape[1], n_components=D,
+         max_iters=max_iters, fit_seconds=fit_s, fits=len(fits),
+         lbfgs_evaluations_per_fit=evals / max(len(fits), 1), **stats,
+         discrepancy=disc,
+         principal_angles_deg=principal_angles_deg(
+             B, edr.components_.T).tolist(),
+         heldout_accuracy=acc, heldout_rows=len(y_test),
+         log_z_ep=model.log_likelihood(), profile_one_evaluation=idle,
+         launches_fit=fit_launches, launches=launches,
+         peak_mem_gb=_peak_gb(device))
+    check(edr.components_.shape == (D, X.shape[1])
+          and np.isfinite(edr.components_).all(), "bad components")
+    check(disc < 0.1, f"EP classifier EDR discrepancy {disc:.3g} >= 0.1")
+    check(acc > 0.85, f"EP classifier held-out accuracy {acc:.3g} <= 0.85")
+    check(fit_launches["rbf_grad_mu"] == len(fits),
+          f"G did not launch once per fit: {fit_launches}, {len(fits)} fits")
+    check(fit_launches["rbf_kernel_matrix"] >= stats["site_loops"],
+          f"K did not serve every site loop: {fit_launches}, "
+          f"{stats['site_loops']} loops")
+    del edr, model
+    _empty_cache(device)
+    return launches
+
+
+def phase_cls_sparse_edr(device="cuda", N=100_000, M=512, max_iters=200,
+                         ep_max_iters=50):
+    """EDR over the sparse VI classifier at N=100,000, M=512, Q=10, then one
+    EP-DTC fit at the same size: its dμ/dx* at every row (one G launch),
+    the eigenvectors of GᵀG, held-out accuracy, ms per EP-DTC iteration and
+    a save/load round trip on the card.  The launches are counted over the
+    VI EDR with its ``predict_proba`` and over the EP-DTC fit with its
+    gradients, predictions and round trip, each from 0; the timed bound
+    evaluations between them are not counted."""
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.models import SparseGaussianProcessClassifier
+    from edrgp_tpu_torch.models.cls_state import (
+        SparseEPClassificationModel, SparseVGPClassificationModel)
+    from edrgp_tpu_torch.ops import ep_dtc, vgp
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    D = 3
+    X, y, B, X_test, y_test = _cls_problem(N)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(SparseVGPClassificationModel, "optimize") as fits, \
+            count_calls(vgp, "svgp_cls_elbo") as evals:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            SparseGaussianProcessClassifier(
+                kernels="RBF", kernel_options={"ARD": True}, num_inducing=M,
+                device=device),
+            SVDTransformer(), n_components=D).fit(X, y, max_iters=max_iters)
+        fit_s = time.perf_counter() - t0
+    fit_launches = dict(rbf.LAUNCHES)
+    before_k = rbf.LAUNCHES["rbf_kernel_matrix"]
+    proba = edr.estimator_.predict_proba(edr._preprocessing_transform(X_test))
+    predict_k = rbf.LAUNCHES["rbf_kernel_matrix"] - before_k
+    vi_launches = dict(rbf.LAUNCHES)
+    acc_vi = float(np.mean((proba > 0.5) == y_test))
+    disc_vi = discrepancy(B, edr.components_.T)
+    angles_vi = principal_angles_deg(B, edr.components_.T).tolist()
+    del edr
+    _empty_cache(device)
+    # one bound value+gradient at N, M, Q=10 from the default start
+    fresh = SparseVGPClassificationModel(X, y, RBF(X.shape[1], ARD=True),
+                                         num_inducing=M, device=device)
+    bound = fresh._objective_fn()
+
+    def evaluation():
+        fresh.zero_grad()
+        bound().backward()
+
+    eval_ms = cuda_ms(evaluation, 5) if device == "cuda" else None
+    eval_idle = _idle_share(evaluation) if device == "cuda" else None
+    del fresh, bound
+
+    rbf.reset_launches()
+    with count_calls(ep_dtc, "ep_dtc_site_loop",
+                     keep=lambda state: state.iters) as sites:
+        t0 = time.perf_counter()
+        model = SparseEPClassificationModel(X, y, RBF(X.shape[1], ARD=True),
+                                            num_inducing=M, device=device)
+        model.optimize(max_iters=ep_max_iters)
+        _sync(device)
+        ep_fit_s = time.perf_counter() - t0
+        before_g = rbf.LAUNCHES["rbf_grad_mu"]
+        t0 = time.perf_counter()
+        G = model.predictive_gradients(X)[0][:, :, 0]
+        grad_s = time.perf_counter() - t0
+        ep_grad_launches = rbf.LAUNCHES["rbf_grad_mu"] - before_g
+    ep_fit_launches = dict(rbf.LAUNCHES)
+    w, V = np.linalg.eigh(G.astype(np.float64).T @ G)
+    comps = V[:, ::-1][:, :D]
+    disc_ep = discrepancy(B, comps)
+    acc_ep = float(np.mean((model.predict(X_test)[0][:, 0] > 0.5) == y_test))
+    bitwise = _save_load_bitwise(model, X_test, device)
+    ep_launches = dict(rbf.LAUNCHES)
+    launches = {k: vi_launches[k] + ep_launches[k] for k in ep_launches}
+    emit(phase="cls_sparse_edr", N=N, Q=X.shape[1], num_inducing=M,
+         n_components=D, max_iters=max_iters, fit_seconds=fit_s,
+         fits=len(fits), bound_evaluations=len(evals),
+         bound_value_grad_ms=eval_ms, profile_one_evaluation=eval_idle,
+         discrepancy=disc_vi, principal_angles_deg=angles_vi,
+         heldout_accuracy=acc_vi, launches_fit=fit_launches,
+         launches_predict_proba_K=predict_k, launches_vi_edr=vi_launches,
+         ep_dtc=dict(max_iters=ep_max_iters, fit_seconds=ep_fit_s,
+                     **_site_stats(sites), log_z_ep_dtc=model.log_likelihood(),
+                     gradient_seconds=grad_s, gradient_launches=ep_grad_launches,
+                     discrepancy=disc_ep,
+                     principal_angles_deg=principal_angles_deg(
+                         B, comps).tolist(),
+                     heldout_accuracy=acc_ep, save_load_bitwise=bitwise,
+                     launches_fit_and_gradients=ep_fit_launches,
+                     launches=ep_launches),
+         launches=launches, peak_mem_gb=_peak_gb(device))
+    check(disc_vi < 0.1, f"sparse VI classifier EDR discrepancy "
+          f"{disc_vi:.3g} >= 0.1")
+    check(disc_ep < 0.1, f"EP-DTC gradient discrepancy {disc_ep:.3g} >= 0.1")
+    check(acc_vi > 0.85 and acc_ep > 0.85,
+          f"held-out accuracy {acc_vi:.3g} (VI), {acc_ep:.3g} (EP-DTC)")
+    check(fit_launches["rbf_grad_mu"] == len(fits) and ep_grad_launches == 1,
+          f"G did not launch once per fit: {fit_launches}, {len(fits)} fits; "
+          f"{ep_grad_launches} in the EP-DTC extraction")
+    check(predict_k >= 1, f"K did not serve predict_proba: {launches}")
+    check(ep_fit_launches["rbf_kernel_matrix"] >= len(sites),
+          f"K did not serve every EP-DTC site loop: {ep_fit_launches}, "
+          f"{len(sites)} loops")
+    check(bitwise, "EP-DTC save/load changed the predictions")
+    del model
+    _empty_cache(device)
+    return launches
+
+
+#: Noise std of each output_index group of het_edr, in units of std(f).
+HET_NOISE = (0.02, 0.05, 0.1, 0.2)
+
+
+def _het_problem(N):
+    """main_path's inputs and subspace with the noise-free target f, and
+    y = f + per-group noise (group = row mod 4, std HET_NOISE·std(f))."""
+    X, _, B, X_test, f_test = _edr_problem(N)
+    from edrgp_tpu_torch.datasets import get_edr_target
+    f = get_edr_target(X @ B)
+    g = np.arange(N) % len(HET_NOISE)
+    sd = np.asarray(HET_NOISE)[g] * np.std(f)
+    y = f + sd * np.random.default_rng(1).normal(size=N)
+    return X, y, g, B, X_test, f_test, (np.asarray(HET_NOISE)
+                                        * np.std(f)) ** 2
+
+
+def phase_het_reference(device="cuda", N=1000, Q=10):
+    """The per-point-noise NLML and its gradients on the card (float32,
+    through K forward and A backward) against the port's CPU float64 at the
+    same fixed parameters (ℓ = 1, σ² = 1, seeded noises): value 1e-4
+    relative, each gradient 1e-3 of its largest entry."""
+    import torch
+    from edrgp_tpu_torch.models.heteroscedastic import (
+        HeteroscedasticGPModel, het_nlml)
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y, _, _, _, _, _ = _het_problem(N)
+    card = HeteroscedasticGPModel(X, y, RBF(Q, ARD=True), device=device)
+    with torch.no_grad():
+        card.raw_noise.copy_(torch.as_tensor(
+            np.random.default_rng(3).uniform(-5.0, -1.0, N)))
+    cpu = HeteroscedasticGPModel(X, y, RBF(Q, ARD=True), device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    out = {}
+    for label, gp in (("card", card), ("cpu", cpu)):
+        gp.zero_grad()
+        rbf.reset_launches()
+        loss = het_nlml(gp, gp._X, gp._y, gp._idx)
+        loss.backward()
+        out[label] = (loss.item(), dict(rbf.LAUNCHES),
+                      {k: p.grad.double().cpu().numpy()
+                       for k, p in gp.named_parameters()})
+    (v_c, launches, g_c), (v_r, _, g_r) = out["card"], out["cpu"]
+    errs = {"value": abs(v_c - v_r) / abs(v_r),
+            **{f"grad[{k}]": _rel_to_max(g_c[k], g_r[k]) for k in g_r}}
+    limits = {k: 1e-4 if k == "value" else 1e-3 for k in errs}
+    emit(phase="het_reference", N=N, Q=Q, nlml_card=v_c, nlml_cpu_f64=v_r,
+         rel_err=errs, limits=limits, launches=launches)
+    for k, err in errs.items():
+        check(err < limits[k], f"het_reference: {k} differs by {err:.3g}")
+    check(launches["rbf_kernel_matrix"] == 1
+          and launches["rbf_nlml_adjoint"] == 1,
+          f"the het NLML did not go through K and A: {launches}")
+
+
+def phase_het_edr(device="cuda", N=8192, max_iters=200):
+    """EDR over the heteroscedastic regressor with four noise groups at
+    N=8,192, Q=10."""
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.models import GaussianProcessHeteroscedasticRegressor
+    from edrgp_tpu_torch.models import heteroscedastic
+    from edrgp_tpu_torch.ops.cuda import rbf
+    D = 3
+    X, y, g, B, X_test, f_test, true_var = _het_problem(N)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(heteroscedastic, "het_nlml") as evals, \
+            count_calls(heteroscedastic.HeteroscedasticGPModel,
+                        "optimize") as fits:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            GaussianProcessHeteroscedasticRegressor(
+                kernels="RBF", kernel_options={"ARD": True},
+                Y_metadata={"output_index": g}, device=device),
+            SVDTransformer(), n_components=D).fit(X, y, max_iters=max_iters)
+        fit_s = time.perf_counter() - t0
+    fit_launches = dict(rbf.LAUNCHES)
+    pred = edr.estimator_.predict(edr._preprocessing_transform(X_test))
+    launches = dict(rbf.LAUNCHES)
+    disc = discrepancy(B, edr.components_.T)
+    model = edr.estimator_.estimator_
+    learned = model.group_noise_variances_
+    ratio = learned / true_var
+    rmse = float(np.sqrt(np.mean((pred - f_test) ** 2)))
+    emit(phase="het_edr", N=N, Q=X.shape[1], n_components=D,
+         max_iters=max_iters, fit_seconds=fit_s, fits=len(fits),
+         nlml_evaluations=len(evals), discrepancy=disc,
+         principal_angles_deg=principal_angles_deg(
+             B, edr.components_.T).tolist(),
+         group_noise_var_learned=learned.tolist(),
+         group_noise_var_true=true_var.tolist(),
+         learned_over_true=ratio.tolist(), heldout_rmse=rmse,
+         heldout_f_std=float(np.std(f_test)), launches_fit=fit_launches,
+         launches=launches, peak_mem_gb=_peak_gb(device))
+    check(disc < 0.1, f"heteroscedastic EDR discrepancy {disc:.3g} >= 0.1")
+    check(np.all((ratio > 1 / 1.5) & (ratio < 1.5)),
+          f"learned group noise off its truth by more than 1.5x: {ratio}")
+    check(np.isfinite(pred).all() and pred.shape == f_test.shape,
+          "bad predictions")
+    check(fit_launches["rbf_nlml_adjoint"] >= len(evals)
+          and fit_launches["rbf_kernel_matrix"] >= len(evals),
+          f"A or K missed an NLML evaluation: {fit_launches}, "
+          f"{len(evals)} evaluations")
+    check(fit_launches["rbf_grad_mu"] == len(fits),
+          f"G did not launch once per fit: {fit_launches}, {len(fits)} fits")
+    del edr, model
     _empty_cache(device)
     return launches
 
@@ -1081,6 +1530,11 @@ def main():
     phase_svgp_reference()
     stream_launches = phase_svgp_stream()
     svgp_edr_launches = phase_svgp_edr()
+    phase_cls_reference()
+    cls_ep_launches = phase_cls_ep_edr()
+    cls_sparse_launches = phase_cls_sparse_edr()
+    phase_het_reference()
+    het_launches = phase_het_edr()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -1088,7 +1542,10 @@ def main():
          "launches_by_path": {"main_path": launches[name],
                               "sparse_edr": sparse_launches[name],
                               "svgp_stream": stream_launches[name],
-                              "svgp_edr": svgp_edr_launches[name]},
+                              "svgp_edr": svgp_edr_launches[name],
+                              "cls_ep_edr": cls_ep_launches[name],
+                              "cls_sparse_edr": cls_sparse_launches[name],
+                              "het_edr": het_launches[name]},
          **summary[name]}
         for name, where in KERNELS.items()]}), flush=True)
     print(smi, flush=True)

@@ -9,9 +9,12 @@ with normalization); the kernel zoo (stationary, periodic, linear,
 polynomial, MLP, sums, products, ``active_dims``); prior mean functions;
 save/load; and the sparse regressor (Titsias SGPR with inducing inputs,
 uncertain inputs through the RBF psi statistics) behind
-``models.SparseGaussianProcessRegressor``; and minibatch SVGP with natural
+``models.SparseGaussianProcessRegressor``; minibatch SVGP with natural
 gradients behind ``models.SVGPRegressor``, trained from memory or streamed
-from disk by a native loader (``data``).
+from disk by a native loader (``data``); binary GP classification (VI, EP,
+sparse VI, EP-DTC) behind ``models.GaussianProcessClassifier`` and
+``models.SparseGaussianProcessClassifier``; and the heteroscedastic
+regressor ``models.GaussianProcessHeteroscedasticRegressor``.
 """
 
 from .edr.base import BaseEDR, BlockEDR, IterativeEDR

@@ -63,7 +63,7 @@ class BaseEDR(BaseEstimator, TransformerMixin):
                               else self.n_components)
 
     def _fit_estimator(self, X, y, **opt_kws):
-        X, y = check_X_y(X, y)
+        X, y = check_X_y(X, y, y_numeric=False)
         self.estimator_ = clone(self.estimator)
         self.estimator_.fit(X, y, **opt_kws)
         if self.num_iter == 0:

@@ -2,9 +2,9 @@
 
 The JAX package's estimator and EDR layers lean on scikit-learn; the machine
 with the card has no scikit-learn, so the port carries the few pieces it
-uses: ``get_params``/``set_params``/``clone``, input checks, a standard
-scaler and row normalization, with scikit-learn's semantics for the cases
-this package meets.
+uses: ``get_params``/``set_params``/``clone``, input checks (class labels
+too), the classifier mixin, a standard scaler and row normalization, with
+scikit-learn's semantics for the cases this package meets.
 """
 
 from __future__ import annotations
@@ -14,9 +14,10 @@ import inspect
 
 import numpy as np
 
-__all__ = ["BaseEstimator", "TransformerMixin", "NotFittedError", "clone",
-           "check_array", "check_X_y", "check_is_fitted", "assert_all_finite",
-           "StandardScaler", "normalize_rows"]
+__all__ = ["BaseEstimator", "TransformerMixin", "ClassifierMixin",
+           "NotFittedError", "clone", "is_classifier", "check_array",
+           "check_X_y", "check_classification_targets", "check_is_fitted",
+           "assert_all_finite", "StandardScaler", "normalize_rows"]
 
 
 class NotFittedError(ValueError, AttributeError):
@@ -74,6 +75,20 @@ class TransformerMixin:
         return self.fit(X, y, **fit_params).transform(X)
 
 
+class ClassifierMixin:
+    """``_estimator_type = "classifier"`` and ``score`` as accuracy."""
+
+    _estimator_type = "classifier"
+
+    def score(self, X, y) -> float:
+        """Share of the rows of X whose predicted label is y's."""
+        return float(np.mean(self.predict(X) == np.asarray(y).reshape(-1)))
+
+
+def is_classifier(estimator) -> bool:
+    return getattr(estimator, "_estimator_type", None) == "classifier"
+
+
 def clone(estimator):
     """A new unfitted estimator with the same parameters (deep-copied
     unless they are estimators themselves, which are cloned)."""
@@ -104,9 +119,11 @@ def check_array(X, copy: bool = False) -> np.ndarray:
     return X
 
 
-def check_X_y(X, y):
-    """(X, y) with X checked by :func:`check_array` and y a finite 1-D
-    array (a column vector is raveled) of the same length."""
+def check_X_y(X, y, y_numeric: bool = True):
+    """(X, y) with X checked by :func:`check_array` and y a 1-D array (a
+    column vector is raveled) of the same length.  With ``y_numeric`` a
+    non-numeric y is cast to float64; a numeric y must be finite.  Labels
+    (``y_numeric=False``) keep their type."""
     if y is None:
         raise ValueError("y must not be None")
     X = check_array(X)
@@ -115,12 +132,25 @@ def check_X_y(X, y):
         y = y[:, 0]
     if y.ndim != 1:
         raise ValueError(f"y must be 1-D, got shape {y.shape}")
-    if y.dtype.kind not in "biuf":
+    if y_numeric and y.dtype.kind not in "biuf":
         y = y.astype(np.float64)
-    assert_all_finite(y)
+    if y.dtype.kind in "biuf":
+        assert_all_finite(y)
     if y.shape[0] != X.shape[0]:
         raise ValueError(f"X has {X.shape[0]} samples, y has {y.shape[0]}")
     return X, y
+
+
+def check_classification_targets(y) -> None:
+    """Raise unless y holds class labels: a float y with a non-integral
+    value is a continuous target ("Unknown label type: 'continuous'", as
+    scikit-learn words it)."""
+    y = np.asarray(y)
+    if y.dtype.kind == "f" and np.any(y != np.round(y)):
+        raise ValueError("Unknown label type: 'continuous'. Maybe you are "
+                         "trying to fit a classifier, which expects "
+                         "discrete classes on a regression target with "
+                         "continuous values.")
 
 
 def check_is_fitted(estimator, attributes=None) -> None:

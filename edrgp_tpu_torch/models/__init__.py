@@ -1,7 +1,12 @@
 """GP estimators (sklearn interface, without sklearn)."""
 
+from .classification import (GaussianProcessClassifier,
+                             SparseGaussianProcessClassifier)
+from .heteroscedastic import GaussianProcessHeteroscedasticRegressor
 from .regression import GaussianProcessRegressor, SparseGaussianProcessRegressor
 from .svgp import SVGPRegressor
 
 __all__ = ["GaussianProcessRegressor", "SparseGaussianProcessRegressor",
-           "SVGPRegressor"]
+           "SVGPRegressor", "GaussianProcessClassifier",
+           "SparseGaussianProcessClassifier",
+           "GaussianProcessHeteroscedasticRegressor"]

@@ -15,7 +15,8 @@ from abc import ABCMeta, abstractmethod
 import numpy as np
 
 from ..estimator import (BaseEstimator, assert_all_finite, check_array,
-                         check_is_fitted, check_X_y)
+                         check_classification_targets, check_is_fitted,
+                         check_X_y, is_classifier)
 from ..ops.kernels import Kernel, make_kernel
 from .state import load_model
 
@@ -45,7 +46,10 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
         return self
 
     def _check_data(self, X, y):
-        X, y = check_X_y(X, y)
+        classifier = is_classifier(self)
+        X, y = check_X_y(X, y, y_numeric=not classifier)
+        if classifier:
+            check_classification_targets(y)
         return X, y[:, np.newaxis]
 
     def _check_input(self, X):
@@ -95,4 +99,6 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
             model_path += ".pickle"
         self.estimator_ = load_model(model_path, device=self.device)
         self.n_features_ = int(self.estimator_._X.shape[1])
+        if hasattr(self.estimator_, "classes_"):
+            self.classes_ = self.estimator_.classes_
         return self

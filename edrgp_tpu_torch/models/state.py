@@ -1,6 +1,8 @@
 """Fitted GP model objects with a GPy-compatible surface.
 
-The port of :mod:`edrgp_tpu.models.state` (exact GP and SGPR).  A model is
+The port of :mod:`edrgp_tpu.models.state` (exact GP and SGPR; the SVGP,
+classification and heteroscedastic models add themselves to
+``_MODEL_CLASSES`` from their modules, which ``models`` imports).  A model is
 an ``nn.Module`` whose ``state_dict()`` keys are the JAX package's pytree
 paths (``kernel.variance``, ``kernel.lengthscale``, ``raw_noise``, ``Z``),
 all in unconstrained space but ``Z``; the training data are plain
@@ -171,12 +173,14 @@ class _BaseModel(_MeanFunctionMixin, nn.Module):
     #: wrong basin often (``edrgp_tpu/models/state.py:167``); f64 keeps one.
     _f32_default_restarts = 1
 
-    def _setup(self, X, y_n, kernel: Kernel, noise_var: float, dtype,
+    def _setup(self, X, y_n, kernel: Kernel, noise_var: float | None, dtype,
                device) -> None:
-        """Kernel and noise parameters, training data on ``device``."""
+        """Kernel and noise parameters, training data on ``device``; no
+        noise parameter when ``noise_var`` is None (the classifiers)."""
         self.kernel = kernel.to(device=device, dtype=dtype)
-        self.raw_noise = nn.Parameter(inv_positive(
-            torch.tensor(float(noise_var), dtype=dtype, device=device)))
+        if noise_var is not None:
+            self.raw_noise = nn.Parameter(inv_positive(
+                torch.tensor(float(noise_var), dtype=dtype, device=device)))
         self._X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
         self._y = torch.as_tensor(np.asarray(y_n), dtype=dtype,
                                   device=device)
@@ -260,6 +264,14 @@ class _BaseModel(_MeanFunctionMixin, nn.Module):
     def _restore(self, state: dict) -> None:
         """Parameters and switches beyond the kernel and the noise, from
         :meth:`_pickle_state`'s ``state`` (before ``load_state_dict``)."""
+
+    def _restore_parameters(self, state: dict, names) -> None:
+        """Each of ``names`` that the pickle holds as a parameter of its
+        saved shape, for ``load_state_dict`` to fill."""
+        for name in names:
+            if name in state["params"]:
+                setattr(self, name, nn.Parameter(torch.as_tensor(
+                    state["params"][name], device=self._X.device)))
 
     def pickle(self, path: str):
         """Save the model to ``path`` (restore it with :func:`load_model`).
@@ -444,8 +456,7 @@ class SGPRModel(_BaseModel):
         return state
 
     def _restore(self, state: dict) -> None:
-        self.Z = nn.Parameter(torch.as_tensor(
-            state["params"]["Z"], device=self._X.device))
+        self._restore_parameters(state, ("Z",))
         self._set_x_variance(state.get("X_variance"))
 
     def _moments(self, Xnew, include_likelihood):
@@ -480,8 +491,9 @@ def load_model(path: str, device=None) -> _BaseModel:
     nn.Module.__init__(obj)
     obj._set_mean_function(state["mean_function"])
     obj.normalizer = state["normalizer"]
+    noise = 1.0 if "raw_noise" in state["params"] else None
     obj._setup(state["X"], state["y"], kernel_from_spec(state["kernel"]),
-               1.0, torch.from_numpy(state["X"]).dtype, device)
+               noise, torch.from_numpy(state["X"]).dtype, device)
     obj._restore(state)
     obj.load_state_dict({k: torch.from_numpy(np.asarray(v))
                          for k, v in state["params"].items()})

@@ -235,11 +235,10 @@ class SVGPModel(_BaseModel):
         return state
 
     def _restore(self, state: dict) -> None:
-        device = self._X.device
-        self.Z = nn.Parameter(torch.as_tensor(state["params"]["Z"],
-                                              device=device))
-        self.qstate = _svgp.SVGPState(*(torch.as_tensor(v, device=device)
-                                        for v in state["qstate"]))
+        self._restore_parameters(state, ("Z",))
+        self.qstate = _svgp.SVGPState(*(
+            torch.as_tensor(v, device=self._X.device)
+            for v in state["qstate"]))
         self._seed = 0
         self.elbo_trace_ = None
 

@@ -1,8 +1,10 @@
-"""Numerical engine: kernels, linalg, exact and sparse GP math, CUDA
-kernels."""
+"""Numerical engine: kernels, linalg, exact, sparse and classification GP
+math, CUDA kernels."""
 
-from . import exact, kernels, linalg, sgpr, svgp, uncertain  # noqa: F401
+from . import (ep, ep_dtc, exact, kernels, linalg, sgpr, svgp,  # noqa: F401
+               uncertain, vgp)
 from .kernels import KERNEL_REGISTRY, Kernel, make_kernel
 
-__all__ = ["exact", "kernels", "linalg", "sgpr", "svgp", "uncertain",
+__all__ = ["ep", "ep_dtc", "exact", "kernels", "linalg", "sgpr", "svgp",
+           "uncertain", "vgp",
            "Kernel", "make_kernel", "KERNEL_REGISTRY"]

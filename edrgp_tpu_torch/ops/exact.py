@@ -26,7 +26,7 @@ __all__ = [
     "nlml", "posterior", "predict", "predict_mean_grad", "predict_var_grad",
     "predict_mean_grad_batched", "predict_var_grad_batched", "map_batched",
     "grad_batch_size", "weighted_kernel_grad", "grad_rows",
-    "noise_variance", "RBFKy",
+    "noise_variance", "noisy_K", "RBFKy",
 ]
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -52,7 +52,9 @@ def _scaled_rbf(kernel: RBF, Q: int):
 
 
 class RBFKy(torch.autograd.Function):
-    """Ky = σ²·exp(−½‖(xᵢ−xⱼ)/ℓ‖²) + σₙ²·I with the fused kernel adjoint.
+    """Ky = σ²·exp(−½‖(xᵢ−xⱼ)/ℓ‖²) + diag(σₙ²) with the fused kernel
+    adjoint; the noise is a scalar σₙ² or one variance per row [N] (the
+    heteroscedastic NLML).
 
     The port of ``_rbf_ky_fused`` (``edrgp_tpu/ops/exact.py:64``).  The
     forward builds K with :func:`rbf_kernel_matrix`; the backward turns the
@@ -68,18 +70,20 @@ class RBFKy(torch.autograd.Function):
         Xs = X / ls
         Ky = rbf_kernel_matrix(Xs, Xs, var)
         Ky.diagonal().add_(noise)
-        ctx.save_for_backward(ls, var, X)
+        ctx.save_for_backward(ls, var, noise, X)
         return Ky
 
     @staticmethod
     def backward(ctx, W):
-        ls, var, X = ctx.saved_tensors
+        ls, var, noise, X = ctx.saved_tensors
         P, r = rbf_nlml_adjoint(X, W, ls, var)
         Xs = X / ls
         dvar = r.sum() / var
         # symmetric W: Σᵢⱼ Aᵢⱼ (xsᵢ − xsⱼ)² = 2Σᵢ rᵢ xsᵢ² − 2Σᵢ xsᵢ Pᵢ
         dls = 2.0 * (r[:, None] * Xs * Xs - Xs * P).sum(0) / ls
-        dnoise = W.diagonal().sum()
+        dnoise = W.diagonal()
+        if noise.ndim == 0:
+            dnoise = dnoise.sum()
         dX = None
         if ctx.needs_input_grad[3]:
             dX = 2.0 * (P - Xs * r[:, None]) / ls
@@ -92,13 +96,19 @@ def _Ky_generic(gp, X):
     return K + noise_variance(gp) * eye
 
 
+def noisy_K(kernel: Kernel, X, noise):
+    """K(X, X) + diag(noise) for a scalar noise or one per row [N]: through
+    :class:`RBFKy` when the RBF kernels serve it, else by autograd through
+    ``kernel.K``.  Only for the NLML path (see :class:`RBFKy`)."""
+    if _fused(kernel, X):
+        ls, var = _scaled_rbf(kernel, X.shape[1])
+        return RBFKy.apply(ls, var, noise, X)
+    return kernel.K(X, X) + torch.diag(noise.expand(X.shape[0]))
+
+
 def _Ky(gp, X):
-    """K(X, X) + σₙ²I: through :class:`RBFKy` when the RBF kernels serve
-    it, else by autograd through ``kernel.K``."""
-    if _fused(gp.kernel, X):
-        ls, var = _scaled_rbf(gp.kernel, X.shape[1])
-        return RBFKy.apply(ls, var, noise_variance(gp), X)
-    return _Ky_generic(gp, X)
+    """K(X, X) + σₙ²I (see :func:`noisy_K`)."""
+    return noisy_K(gp.kernel, X, noise_variance(gp))
 
 
 def _cross_K(kernel: Kernel, X1, X2):

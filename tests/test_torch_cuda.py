@@ -1,7 +1,10 @@
 """The port on an NVIDIA GPU: each CUDA kernel against its plain version,
 the NLML gradient through the kernels against plain autograd, a small EDR
-fit on the card against the CPU float64 fit, and an SGPR model's gradients
-through kernel G against a CPU float64 model.
+fit on the card against the CPU float64 fit, an SGPR model's gradients
+through kernel G against a CPU float64 model, the SVGP ops, the stream feed,
+G and K at the classifier EDR's shapes, the heteroscedastic NLML's per-row
+noise through kernels K and A, and each classifier against its CPU float64
+model.
 
 Every test needs a card and skips without one.  The file imports no JAX, so
 on the GPU machine (which has no JAX) it runs without the suite's
@@ -23,7 +26,7 @@ from edrgp_tpu_torch.models import GaussianProcessRegressor
 from edrgp_tpu_torch.models.state import ExactGPModel
 from edrgp_tpu_torch.ops import exact, linalg
 from edrgp_tpu_torch.ops.cuda import rbf
-from edrgp_tpu_torch.ops.kernels import RBF
+from edrgp_tpu_torch.ops.kernels import RBF, positive
 
 
 @pytest.fixture
@@ -434,3 +437,95 @@ def test_cuda_grad_mu_svgp_capstone_shape(card, Q):
     G = rbf.rbf_grad_mu(Xn, Z, w, ls, 1.3)
     assert rbf.LAUNCHES["rbf_grad_mu"] == 1
     assert _rel(G, rbf.rbf_grad_mu_plain(Xn, Z, w, ls, 1.3)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [10, 7, 4, 3])
+def test_cuda_grad_mu_ep_classifier_shape(card, Q):
+    """G and K at the EP classifier EDR's 4,096 training rows, at the Q of
+    each of its fits, against their plain versions (G 1e-4, K 1e-5 of the
+    largest entry)."""
+    g = torch.Generator(device=card).manual_seed(Q)
+    X = torch.rand(4096, Q, generator=g, device=card) * 2 - 1
+    w = torch.randn(4096, generator=g, device=card)
+    ls = torch.full((Q,), 0.5 * Q ** 0.5, device=card)
+    rbf.reset_launches()
+    G = rbf.rbf_grad_mu(X, X, w, ls, 1.3)
+    K = rbf.rbf_kernel_matrix(X / ls, X / ls, 1.3)
+    assert rbf.LAUNCHES["rbf_grad_mu"] == rbf.LAUNCHES["rbf_kernel_matrix"] == 1
+    assert _rel(G, rbf.rbf_grad_mu_plain(X, X, w, ls, 1.3)) < 1e-4
+    assert _rel(K, rbf.rbf_kernel_matrix_plain(X / ls, X / ls, 1.3)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1000, 4097])
+def test_cuda_rbfky_noise_vector_matches_plain_backward(card, N):
+    """The heteroscedastic NLML through RBFKy with one noise per row (K
+    forward, A backward, the noise's gradient off W's diagonal) against
+    plain autograd through K + diag(noise) on the card, to 1e-3 of each
+    gradient's largest entry."""
+    from edrgp_tpu_torch.models.heteroscedastic import (
+        HeteroscedasticGPModel, het_nlml)
+    rng = np.random.default_rng(N)
+    X = rng.normal(size=(N, 5))
+    y = np.sin(X @ rng.normal(size=5)) + 0.1 * rng.normal(size=N)
+    m = HeteroscedasticGPModel(X, y, RBF(5, ARD=True), device=card,
+                               Y_metadata={"output_index": np.arange(N) % 7})
+    with torch.no_grad():
+        m.raw_noise.copy_(torch.linspace(-4.0, -1.0, 7))
+    out = []
+    for route in ("kernels", "plain"):
+        m.zero_grad()
+        rbf.reset_launches()
+        if route == "kernels":
+            loss = het_nlml(m, m._X, m._y, m._idx)
+        else:
+            noise = positive(m.raw_noise)[m._idx]
+            Ky = m.kernel.K(m._X, m._X) + torch.diag(noise)
+            logdet, quad = linalg.logdet_and_quad(Ky, m._y)
+            loss = 0.5 * (N * math.log(2 * math.pi) + logdet + quad)
+        loss.backward()
+        out.append(([p.grad.clone() for p in m.parameters()],
+                    dict(rbf.LAUNCHES), loss.item()))
+    assert out[0][1]["rbf_kernel_matrix"] == 1
+    assert out[0][1]["rbf_nlml_adjoint"] == 1
+    assert sum(out[1][1].values()) == 0
+    assert abs(out[0][2] - out[1][2]) < 1e-4 * abs(out[1][2])
+    for a, b in zip(out[0][0], out[1][0]):
+        assert _rel(a, b) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["VGPClassificationModel",
+                                  "SparseVGPClassificationModel",
+                                  "EPClassificationModel",
+                                  "SparseEPClassificationModel"])
+def test_cuda_classifier_matches_cpu_float64(card, name):
+    """Each classifier on the card (float32) against the CPU float64 model
+    at the same parameters: the bound or log Z_EP (1e-4 relative; EP 1e-3),
+    P(y=1) and dμ/dx* through G (1e-4 of the largest entry).  ℓ = 0.3 keeps
+    the full VI model's K(X, X) factorable without jitter in float32: at
+    ℓ = 1 on these 400 rows in [−1, 1]⁴ the float32 ladder adds 1e-6 of
+    jitter where float64 adds 1e-10, and the two bounds differ by that."""
+    from edrgp_tpu_torch.models import cls_state
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-1, 1, size=(400, 4))
+    y = (np.sin(3 * X[:, 0]) + X[:, 1] + 0.3 * rng.normal(size=400) > 0)
+    Xs = rng.uniform(-1, 1, size=(300, 4))
+    kw = {"num_inducing": 32} if name.startswith("Sparse") else {}
+    cls = getattr(cls_state, name)
+    gpu = cls(X, y, RBF(4, ARD=True, lengthscale=0.3), device=card, **kw)
+    with torch.no_grad():
+        if hasattr(gpu, "m"):
+            gpu.m.copy_(torch.as_tensor(0.5 * rng.normal(size=gpu.m.shape)))
+    cpu = cls(X, y, RBF(4, ARD=True), device="cpu", **kw)
+    cpu.load_state_dict(gpu.state_dict())
+    rbf.reset_launches()
+    dmu = gpu.predictive_gradients(Xs)[0]
+    assert rbf.LAUNCHES["rbf_grad_mu"] == 1
+    tol = 1e-3 if "EP" in name else 1e-4
+    want = cpu.log_likelihood()
+    assert abs(gpu.log_likelihood() - want) < tol * abs(want)
+    for a, b in ((gpu.predict(Xs)[0], cpu.predict(Xs)[0]),
+                 (dmu, cpu.predictive_gradients(Xs)[0])):
+        assert np.abs(a - b).max() < 1e-4 * np.abs(b).max()
