@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-GP, sparse, SVGP, classifier and
-heteroscedastic EDR paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's exact-GP, sparse, SVGP, classifier,
+heteroscedastic and Bayesian EDR paths and its samplers once on an NVIDIA
+GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -103,12 +104,39 @@ Phases, in order, each printing one JSON line:
    "output_index": row mod 4})`` at N=8,192, Q=10, noise std per group
    0.02 / 0.05 / 0.1 / 0.2 × std(f), ``max_iters=200``: discrepancy < 0.1,
    each learned group noise variance within a factor of 1.5 of its truth,
-   A and K in every NLML evaluation, G once per fit.
+   A and K in every NLML evaluation, G once per fit;
+16. sampler_reference — the samplers' numerics at BASELINE config 4's
+   target (N=500, Q=4, 16 θ near the MAP) on the card (float32) against
+   the port's CPU float64: ``nlml_chains`` value (1e-4 relative) and
+   gradient (1e-3 of each parameter's largest entry), a 16-step leapfrog
+   trajectory (1e-4), ``curvature_inv_mass`` (2e-2), and a chain at σ² =
+   inf whose failure stays in its lane;
+17. nuts_gp — BASELINE config 4 (``benchmarks/nuts_tpu.py``): NUTS over
+   the exact-GP hyperparameters (4 ARD lengthscales, variance, noise) at
+   N=1,024, Q=4, one group of 16 chains from the MAP with the Laplace
+   mass, warmup 256, 128 samples, pooled ε: samples/s steady and with
+   warmup, leapfrogs per transition, split-R̂ < 1.05, ESS ≥ 100,
+   divergences ≤ 1%, the device idle share of a sampling segment and a
+   profile of one 16-chain value+gradient; K and A once per chain per
+   evaluation;
+18. smc_gp — adaptive-tempering SMC on nuts_gp's target
+   (``benchmarks/baseline_scale_tpu.py:128-231``: 256 particles from the
+   MAP + 0.5·N(0, I), chunks of 64): β = 1 within 60 stages, ≥ 25%
+   unique particles after every resample, the posterior against nuts_gp's
+   draws (|z| < 2 a dimension, SD ratios in [0.5, 2]);
+19. bayes_edr — ``EffectiveDimensionalityReduction(
+   BayesianGaussianProcessRegressor(kernels=["RBF"], kernel_options=[{"ARD":
+   True}], num_chains=4, ...), SVDTransformer(), n_components=3)`` at
+   N=1,024, Q=10 (150 warmup and 50 sampling transitions a fit, trees of
+   depth 6 at most): each
+   fit's R̂ < 1.1, discrepancy < 0.1, G once per kept sample, K once per
+   kept sample in ``predict``, a bitwise save/load round trip.
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
 of bound, launches on the main path and, under ``launches_by_path``, on
 each EDR path (main_path, sparse_edr, svgp_stream, svgp_edr, cls_ep_edr,
-cls_sparse_edr, het_edr); ``library_ms`` is null because no single PyTorch call computes
+cls_sparse_edr, het_edr) and sampler path (nuts_gp, smc_gp, bayes_edr);
+``library_ms`` is null because no single PyTorch call computes
 any of the three functions), the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Any failure raises and exits non-zero; so does a machine without
@@ -245,14 +273,27 @@ def phase_build():
          loader_library=str(loader))
 
 
-def _kernel_case(name, rows, cols, Q, gen):
-    """(kernel call, plain call) on random inputs of the given shape."""
+def _kernel_case(name, rows, cols, Q, gen, chains=None):
+    """(kernel call, plain call) on random inputs of the given shape; with
+    ``chains``, K and A on a chain batch (a leading axis, ℓ and σ² one per
+    chain), as the samplers' NLML calls them."""
     import torch
     from edrgp_tpu_torch.ops.cuda import rbf
     dev = "cuda"
-    ls = 0.5 * math.sqrt(Q) * (1.0 + torch.rand(Q, generator=gen,
+    lead = () if chains is None else (chains,)
+    ls = 0.5 * math.sqrt(Q) * (1.0 + torch.rand(*lead, Q, generator=gen,
                                                 device=dev))
-    s2 = torch.tensor(1.3, device=dev)
+    s2 = 1.3 + 0.2 * torch.rand(lead, generator=gen, device=dev)
+    if chains is not None:
+        X = torch.randn(chains, rows, Q, generator=gen, device=dev)
+        if name == "rbf_kernel_matrix":
+            Xs = X / ls[:, None, :]
+            return (lambda: rbf.rbf_kernel_matrix(Xs, Xs, s2),
+                    lambda: rbf.rbf_kernel_matrix_plain(Xs, Xs, s2))
+        W = torch.randn(chains, rows, rows, generator=gen, device=dev)
+        W = 0.5 * (W + W.mT)
+        return (lambda: rbf.rbf_nlml_adjoint(X, W, ls, s2),
+                lambda: rbf.rbf_nlml_adjoint_plain(X, W, ls, s2))
     if name == "rbf_kernel_matrix":
         X1 = torch.randn(rows, Q, generator=gen, device=dev) / ls
         X2 = torch.randn(cols, Q, generator=gen, device=dev) / ls
@@ -286,30 +327,40 @@ def phase_kernels():
     4,000 and K(Z, X*) at 512 by 4,000 in Q=3 (their held-out
     predictions), the EP-DTC fit's K(Z, X) at 512 by 100,000 (its site
     loops and cache) and K(Z, X*) at 512 by 4,000 (its predictions), both
-    in Q=10; het_edr runs at main_path's 8,192² shapes."""
+    in Q=10; het_edr runs at main_path's 8,192² shapes.  The samplers'
+    shapes: K and A at N=1,024 in Q=4 (nuts_gp, smc_gp) and Q=10
+    (bayes_edr's first fit), one chain and a batch of 16 chains (nuts_gp's
+    group; a 4-tuple names the chains), and 64 (smc_gp's particle chunk)
+    in Q=4; G at 1,024² in each Q of bayes_edr's fits and K(X, X*) at
+    1,024 by 2,000 in its last Q=3 (its per-sample predictions)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     qs = (10, 7, 4, 3)
     fits = [(8192, 8192, Q) for Q in qs]
     ep_fits = [(4096, 4096, Q) for Q in qs]
+    chains = [(1024, 1024, 4), (1024, 1024, 10), (1024, 1024, 4, 16),
+              (1024, 1024, 10, 16), (1024, 1024, 4, 64)]
     shapes = {
         "rbf_kernel_matrix": [(1000, 1537, 10), *fits, (8192, 2000, 3),
                               (8191, 8191, 10), (512, 2000, 3),
                               (512, 4000, 8), *ep_fits, (4096, 4000, 3),
                               (512, 4000, 3), (512, 100000, 10),
-                              (512, 4000, 10)],
+                              (512, 4000, 10), *chains, (1024, 2000, 3)],
         "rbf_grad_mu": [(1000, 1537, 10), *fits, *ep_fits, (8191, 8191, 10),
                         (102400, 8192, 10),
                         *[(1048576, 512, Q) for Q in qs],
                         (100000, 512, 8),
-                        *[(100000, 512, Q) for Q in qs]],
-        "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10)],
+                        *[(100000, 512, Q) for Q in qs],
+                        *[(1024, 1024, Q) for Q in qs]],
+        "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10),
+                             *chains],
     }
     summary = {}
     for name, cases in shapes.items():
         worst = 0.0
-        for rows, cols, Q in cases:
-            kernel, plain = _kernel_case(name, rows, cols, Q, gen)
+        for rows, cols, Q, *batch in cases:
+            C = batch[0] if batch else None
+            kernel, plain = _kernel_case(name, rows, cols, Q, gen, C)
             got, want = kernel(), plain()
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
@@ -325,16 +376,19 @@ def phase_kernels():
             del again
             ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 20)
             bound_ms, resource = kernel_bound(name, rows, cols, Q)
+            bound_ms *= C or 1
             emit(phase="kernels", kernel=name, rows=rows, cols=cols, Q=Q,
-                 max_abs_err=err, rel_err=rel, limit=LIMITS[name], ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, resource=resource,
-                 share_of_bound=bound_ms / ms, bitwise_repeat=bitwise)
-            check(rel <= LIMITS[name], f"{name} at {(rows, cols, Q)}: "
+                 chains=C, max_abs_err=err, rel_err=rel, limit=LIMITS[name],
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 resource=resource, share_of_bound=bound_ms / ms,
+                 bitwise_repeat=bitwise)
+            shape = (rows, cols, Q, *batch)
+            check(rel <= LIMITS[name], f"{name} at {shape}: "
                   f"relative error {rel:.3g} > {LIMITS[name]}")
-            check(bitwise, f"{name} at {(rows, cols, Q)}: two launches on "
+            check(bitwise, f"{name} at {shape}: two launches on "
                   "the same inputs differ")
             worst = max(worst, err)
-            if (rows, cols, Q) == MAIN_SHAPE:
+            if (rows, cols, Q) == MAIN_SHAPE and C is None:
                 summary[name] = {
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "operations" if resource == "fp32"
@@ -1509,6 +1563,433 @@ def phase_het_edr(device="cuda", N=8192, max_iters=200):
     return launches
 
 
+#: The N(0, 3²) prior on the unconstrained hyperparameters of nuts_gp,
+#: smc_gp and the Bayesian regressor (``benchmarks/nuts_tpu.py:65``).
+PRIOR_SCALE = 3.0
+
+
+def _nuts_problem(N, Q):
+    """BASELINE config 4's data (``benchmarks/nuts_tpu.py:56-60``): X ~
+    N(0, I), f = sin(1.3·x₀) + 0.5·cos x₁, y = f + 0.15·noise, y not
+    normalized."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(N, Q))
+    f = np.sin(1.3 * X[:, 0]) + 0.5 * np.cos(X[:, 1])
+    return X, f + 0.15 * rng.normal(size=N)
+
+
+def _gp_target(device, N, Q):
+    """(kernel, log posterior, log likelihood, log prior) of config 4's
+    target over flat θ [C, D] on ``device`` (float32 on the card)."""
+    import torch
+    from edrgp_tpu_torch.config import default_dtype
+    from edrgp_tpu_torch.ops import exact
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y = _nuts_problem(N, Q)
+    dt = default_dtype(device)
+    Xt = torch.as_tensor(X, dtype=dt, device=device)
+    yt = torch.as_tensor(y, dtype=dt, device=device)
+    kernel = RBF(Q, ARD=True).to(device=device, dtype=dt)
+
+    def loglik(q):
+        return -exact.nlml_chains(kernel, q, Xt, yt)
+
+    def logprior(q):
+        return -0.5 * ((q / PRIOR_SCALE) ** 2).sum(-1)
+
+    def logprob(q):
+        return loglik(q) + logprior(q)
+
+    return kernel, logprob, loglik, logprior
+
+
+def _map_theta(device, N, Q, logprob):
+    """The target's mode as ``benchmarks/nuts_tpu.py:73-105`` finds it:
+    ML-II by the port's L-BFGS from σₙ² = 0.1 (one start, 200 iterations,
+    tol 3e-4), clipped into the prior's support (±2 prior scales), then
+    refined to the MAP of the target itself (100 iterations)."""
+    import torch
+    from edrgp_tpu_torch.inference.lbfgs import minimize
+    from edrgp_tpu_torch.models.state import ExactGPModel
+    from edrgp_tpu_torch.ops import exact
+    from edrgp_tpu_torch.ops.kernels import RBF
+    X, y = _nuts_problem(N, Q)
+    m = ExactGPModel(X, y, RBF(Q, ARD=True), normalizer=False,
+                     noise_var=0.1, device=device)
+    m.optimize(max_iters=200, tol=3e-4, num_restarts=1)
+    theta = exact.flatten_theta(m.kernel, m.raw_noise)
+    theta = theta.clamp(-2 * PRIOR_SCALE, 2 * PRIOR_SCALE).requires_grad_()
+    res = minimize(lambda: -logprob(theta[None])[0], [theta], max_iters=100,
+                   tol=3e-4)
+    return res.params[0].detach(), float(m._objective), float(res.value)
+
+
+def phase_sampler_reference(device="cuda", N=500, Q=4, C=16, steps=16,
+                            eps=0.01):
+    """The samplers' numerics on the card (float32) against the port on
+    the CPU in float64, at config 4's target (N=500, Q=4) and 16 fixed θ
+    near the MAP (θ̂ + 0.1·N(0, I), seeded): ``nlml_chains`` value (1e-4
+    relative) and gradient (1e-3 of each parameter's largest entry); a
+    16-step leapfrog trajectory from a fixed momentum (ε = 0.01, unit
+    mass: positions 1e-4 of their largest entry, log densities 1e-4
+    relative); ``curvature_inv_mass`` at θ̂ (2e-2 relative: float32's
+    difference step is 4.9e-3, float64's 6.1e-6); and one chain pushed
+    to σ² = inf, which factors on no rung of the jitter ladder: its log
+    density is non-finite and every other chain's value and gradient
+    keep their bits."""
+    import torch
+    from edrgp_tpu_torch.inference import hmc
+    from edrgp_tpu_torch.ops import exact
+    from edrgp_tpu_torch.ops.cuda import rbf
+    targets = {dev: _gp_target(dev, N, Q) for dev in (device, "cpu")}
+    theta_hat = _map_theta(device, N, Q, targets[device][1])[0]
+    D = theta_hat.shape[0]
+    rng = np.random.default_rng(11)
+    thetas = (theta_hat.double().cpu().numpy()
+              + 0.1 * rng.normal(size=(C, D)))
+    p0 = rng.normal(size=(C, D))
+    out = {}
+    for dev, (kernel, logprob, loglik, _) in targets.items():
+        dt = torch.float64 if dev == "cpu" else torch.float32
+        th = torch.as_tensor(thetas, dtype=dt, device=dev)
+        rbf.reset_launches()
+        nlml, g = hmc.value_and_grad(lambda q: -loglik(q), th)
+        launches = dict(rbf.LAUNCHES)
+        lp, grad = hmc.value_and_grad(logprob, th)
+        traj = hmc._leapfrog(logprob, th, torch.as_tensor(p0, dtype=dt,
+                                                          device=dev),
+                             grad, torch.full((C,), eps, dtype=dt,
+                                              device=dev),
+                             torch.ones_like(th), steps)
+        im = hmc.curvature_inv_mass(logprob, theta_hat.to(dev, dt))
+        out[dev] = [t.double().cpu().numpy() for t in
+                    (nlml, g, traj[0][-1], traj[1][-1], im)] + [launches]
+    (v_c, g_c, q_c, lp_c, im_c, launches), (v_r, g_r, q_r, lp_r, im_r, _) \
+        = out[device], out["cpu"]
+    errs = {"nlml": float(np.abs(v_c - v_r).max() / np.abs(v_r).max()),
+            **{f"grad[{d}]": float(np.abs(g_c[:, d] - g_r[:, d]).max()
+                                   / np.abs(g_r[:, d]).max())
+               for d in range(D)},
+            "leapfrog_q": _rel_to_max(q_c, q_r),
+            "leapfrog_logp": float(np.abs(lp_c - lp_r).max()
+                                   / np.abs(lp_r).max()),
+            "curvature_inv_mass": float(np.abs(im_c / im_r - 1).max())}
+    limits = {k: (1e-3 if k.startswith("grad") else 2e-2
+                  if k == "curvature_inv_mass" else 1e-4) for k in errs}
+
+    kernel, logprob, _, _ = targets[device]
+    th = torch.as_tensor(thetas, dtype=torch.float32, device=device)
+    bad = th.clone()
+    bad[3, Q] = float("inf")
+    lp_ok, g_ok = hmc.value_and_grad(logprob, th)
+    lp_bad, g_bad = hmc.value_and_grad(logprob, bad)
+    keep = torch.arange(C, device=device) != 3
+    lane = dict(failed_chain_finite=bool(torch.isfinite(lp_bad[3])),
+                others_same_bits=bool(torch.equal(lp_bad[keep], lp_ok[keep])
+                                      and torch.equal(g_bad[keep],
+                                                      g_ok[keep])))
+    emit(phase="sampler_reference", N=N, Q=Q, chains=C, rel_err=errs,
+         limits=limits, launches=launches, theta_hat=theta_hat.tolist(),
+         inv_mass_card=im_c.tolist(), inv_mass_cpu_f64=im_r.tolist(),
+         **lane)
+    for k, err in errs.items():
+        check(err < limits[k], f"sampler_reference: {k} differs by "
+              f"{err:.3g} (limit {limits[k]})")
+    check(launches["rbf_kernel_matrix"] == C
+          and launches["rbf_nlml_adjoint"] == C,
+          f"nlml_chains did not launch K and A once per chain: {launches}")
+    check(not lane["failed_chain_finite"] and lane["others_same_bits"],
+          f"a failed chain leaked into its batch: {lane}")
+
+
+def profile_chain_evaluation(logprob, q, reps=3):
+    """One chain-batched value+gradient of ``logprob`` at q [C, D]: device
+    ms (CUDA events), and a torch.profiler split of its device time by the
+    op that launched each kernel, the hand-written kernels' launches
+    labelled K and A (their scratch copies stay under the aten ops)."""
+    from torch.profiler import record_function
+    from edrgp_tpu_torch.inference import hmc
+    from edrgp_tpu_torch.ops import exact
+
+    def labelled(label, fn):
+        def run(*args):
+            with record_function(label):
+                return fn(*args)
+        return run
+
+    saved = exact.rbf_kernel_matrix, exact.rbf_nlml_adjoint
+    exact.rbf_kernel_matrix = labelled("K", saved[0])
+    exact.rbf_nlml_adjoint = labelled("A", saved[1])
+    try:
+        ms = cuda_ms(lambda: hmc.value_and_grad(logprob, q), reps)
+        cpu_ops, wall, busy = _profiled(
+            lambda: hmc.value_and_grad(logprob, q), reps)
+    finally:
+        exact.rbf_kernel_matrix, exact.rbf_nlml_adjoint = saved
+    split = {}
+    for e in cpu_ops:
+        t = sum(k.duration for k in e.kernels) / reps / 1e3
+        if t > 0:
+            split[e.name] = split.get(e.name, 0.0) + t
+    top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:10])
+    return dict(chains=int(q.shape[0]), ms=ms, wall_ms=wall,
+                device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                split_ms=top)
+
+
+class _SegmentClock:
+    """``on_segment`` hook: host seconds of each warmup and sampling
+    segment (each ends in a host read)."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+        self.warm, self.sample = [], []
+
+    def __call__(self, phase, done, total):
+        now = time.perf_counter()
+        (self.sample if phase == "sample" else self.warm).append(
+            now - self.last)
+        self.last = now
+
+
+def _counting(fn, calls):
+    """``fn`` that appends the number of chains of every batch it takes."""
+    def counted(q):
+        calls.append(q.shape[0])
+        return fn(q)
+    return counted
+
+
+def phase_nuts_gp(device="cuda", N=1024, Q=4, chains=16, warmup=256,
+                  samples=128, max_depth=8, segment=8):
+    """BASELINE config 4 (``benchmarks/nuts_tpu.py``'s defaults), one chain
+    group: NUTS over the exact-GP posterior of θ = (4 ARD lengthscales,
+    variance, noise) at N=1,024, Q=4, prior N(0, 3²); chains start at the
+    MAP + 0.05·N(0, I) with the Laplace mass, pooled ε; every leapfrog
+    step is one 16-chain NLML value+gradient (K forward and A backward
+    once per chain)."""
+    import torch
+    from edrgp_tpu_torch.inference import hmc
+    from edrgp_tpu_torch.inference.nuts import nuts_step, run_nuts_segmented
+    from edrgp_tpu_torch.metrics import (effective_sample_size,
+                                         potential_scale_reduction)
+    from edrgp_tpu_torch.ops.cuda import rbf
+    _, logprob, _, _ = _gp_target(device, N, Q)
+    t0 = time.perf_counter()
+    theta_hat, ml2, neg_map = _map_theta(device, N, Q, logprob)
+    inv_mass0 = hmc.curvature_inv_mass(logprob, theta_hat)
+    mode_s = time.perf_counter() - t0
+    D = theta_hat.shape[0]
+    q0 = theta_hat + 0.05 * torch.as_tensor(
+        np.random.default_rng(1).normal(size=(chains, D)),
+        dtype=theta_hat.dtype, device=theta_hat.device)
+    clock, calls = _SegmentClock(), []
+    _sync(device)
+    rbf.reset_launches()
+    t0 = clock.last = time.perf_counter()
+    qs, info = run_nuts_segmented(
+        _counting(logprob, calls), q0, 0, num_warmup=warmup,
+        num_samples=samples, max_depth=max_depth, segment_len=segment,
+        pool_eps=True, inv_mass0=inv_mass0.cpu().numpy(),
+        on_segment=clock)
+    wall = time.perf_counter() - t0
+    launches = dict(rbf.LAUNCHES)
+    leaps = info["leapfrogs_per_transition"] - 1          # [S, C]
+    steady = clock.sample[1:] or clock.sample
+    samples_per_s = chains * segment / float(np.median(steady))
+    sample_s = float(np.sum(clock.sample))
+    chain_evals = sum(calls)
+    rhat = potential_scale_reduction(qs)
+    ess = effective_sample_size(qs)
+
+    eps = torch.as_tensor(info["step_size"], device=device)
+    im = torch.as_tensor(info["inv_mass"], device=device)
+    state = hmc.init_state(logprob, torch.as_tensor(qs[:, -1],
+                                                    device=device))
+    gen = hmc.make_generator(5, device)
+
+    def one_segment():
+        st = state
+        for _ in range(segment):
+            st, _ = nuts_step(logprob, st, gen, eps, im, max_depth)
+        st.q[:1].cpu()
+
+    idle = _idle_share(one_segment, reps=1)
+    evaluation = profile_chain_evaluation(logprob, q0)
+    transitions = chains * samples
+    emit(phase="nuts_gp", N=N, Q=Q, chains=chains, warmup=warmup,
+         samples=samples, max_depth=max_depth, segment=segment,
+         ml2_nlml=ml2, map_neg_log_post=neg_map, mode_and_mass_s=mode_s,
+         theta_hat=theta_hat.tolist(), inv_mass0=inv_mass0.tolist(),
+         samples_per_s=samples_per_s,
+         samples_per_s_incl_warmup=transitions / wall,
+         median_sampling_segment_s=float(np.median(steady)),
+         warmup_s=float(np.sum(clock.warm)), sampling_s=sample_s,
+         wall_s=wall, grad_evals_per_s=float(
+             np.sum(leaps) / sample_s),
+         batched_evaluations=len(calls), chain_evaluations=chain_evals,
+         mean_leapfrogs_per_transition=float(leaps.mean()),
+         mean_max_leapfrogs_over_chains=float(leaps.max(1).mean()),
+         accept_rate=info["accept_rate"], divergences=info["divergences"],
+         step_size=float(info["step_size"][0]),
+         max_split_rhat=float(rhat.max()), min_ess=float(ess.min()),
+         posterior_mean=qs.reshape(-1, D).mean(0).tolist(),
+         posterior_sd=qs.reshape(-1, D).std(0).tolist(),
+         leapfrog_wall_ms=1e3 * wall / len(calls),
+         sampling_segment_profile=idle, evaluation_profile=evaluation,
+         launches=launches)
+    check(np.isfinite(qs).all(), "non-finite NUTS draws")
+    check(rhat.max() < 1.05, f"split-R-hat {rhat.max():.4f} >= 1.05")
+    check(info["divergences"] <= 0.01 * transitions,
+          f"{info['divergences']} divergences in {transitions} transitions")
+    check(ess.min() >= 100, f"smallest ESS {ess.min():.1f} < 100")
+    check(launches["rbf_kernel_matrix"] >= chain_evals
+          and launches["rbf_nlml_adjoint"] >= chain_evals,
+          f"K or A missed a chain's gradient evaluation: {launches}, "
+          f"{chain_evals} chain evaluations in {len(calls)} batches")
+    return launches, theta_hat, qs
+
+
+def phase_smc_gp(theta_hat, nuts_qs, device="cuda", N=1024, Q=4,
+                 particles=256, chunk=64, num_mcmc=3, n_leapfrog=10,
+                 eps=0.02, max_stages=60):
+    """Adaptive-tempering SMC on nuts_gp's identical target, as
+    ``benchmarks/baseline_scale_tpu.py:128-231`` runs config 5's SMC:
+    particles θ̂ + 0.5·N(0, I), 3 HMC sweeps of 10 leapfrogs a stage, ε
+    seeded at 0.02, particle chunks of 64; then the cross-check against
+    nuts_gp's draws (``:273-303``): |SMC mean − NUTS mean| / NUTS sd per
+    dimension and the ratio of the standard deviations."""
+    import torch
+    from edrgp_tpu_torch.inference.smc import run_smc_segmented
+    from edrgp_tpu_torch.ops.cuda import rbf
+    _, _, loglik, logprior = _gp_target(device, N, Q)
+    D = theta_hat.shape[0]
+    parts0 = theta_hat + 0.5 * torch.as_tensor(
+        np.random.default_rng(2).normal(size=(particles, D)),
+        dtype=theta_hat.dtype, device=theta_hat.device)
+    _sync(device)
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    parts, info = run_smc_segmented(
+        loglik, logprior, parts0, 3, num_mcmc=num_mcmc,
+        n_leapfrog=n_leapfrog, eps=eps, max_stages=max_stages,
+        particle_chunk=chunk)
+    wall = time.perf_counter() - t0
+    launches = dict(rbf.LAUNCHES)
+    post = parts.double().cpu().numpy()
+    nuts = nuts_qs.reshape(-1, D)
+    z = (post.mean(0) - nuts.mean(0)) / nuts.std(0)
+    ratio = post.std(0) / nuts.std(0)
+    uniq = info["unique_particles_after_resample"]
+    emit(phase="smc_gp", N=N, Q=Q, particles=particles,
+         particle_chunk=chunk, num_mcmc=num_mcmc, n_leapfrog=n_leapfrog,
+         converged=info["converged"], n_stages=info["n_stages"],
+         beta_ladder=info["beta_trace"], ess_trace=info["ess_trace"],
+         unique_particles_after_resample=uniq,
+         eps_trace=info["eps_trace"], accept_trace=info["accept_trace"],
+         log_evidence=info["log_evidence"], wall_s=wall,
+         particle_stages_per_s=particles * info["n_stages"] / wall,
+         posterior_mean=post.mean(0).tolist(),
+         posterior_sd=post.std(0).tolist(),
+         smc_minus_nuts_mean_in_nuts_sd=z.tolist(),
+         smc_over_nuts_sd=ratio.tolist(), launches=launches)
+    check(info["converged"], f"SMC did not reach beta = 1 in {max_stages} "
+          "stages")
+    check(min(uniq) >= 0.25 * particles,
+          f"a resample kept {min(uniq)} of {particles} particles")
+    check(np.all(np.abs(z) < 2), f"SMC and NUTS means differ: z = {z}")
+    check(np.all((ratio >= 0.5) & (ratio <= 2)),
+          f"SMC and NUTS spreads differ: ratio {ratio}")
+    return launches
+
+
+def phase_bayes_edr(device="cuda", N=1024, num_chains=4, num_warmup=150,
+                    num_samples=50, max_depth=6):
+    """EDR over the fully Bayesian regressor on main_path's generator
+    (beta inputs, Q=10, a planted 3-D subspace) at N=1,024: NUTS in every
+    fit (K and A once per chain per leapfrog step), dμ/dx* averaged over
+    the kept samples (G once per sample) and K(X, X*) once per sample in
+    ``predict``.  Cut from 150 sampling transitions a fit to 50 and from
+    trees of depth 8 to 6; the warmup stays at 150 (PERF.md §4): on an
+    H100 the four fits took 554 s at depth 8, the Q=7 fit 178 s of it on a
+    chain adapted to ε = 0.016, and 235 s at depth 6 with the same
+    discrepancy; a warmup cut to 60 made them take 776 s, since the chains
+    then sampled with a kernel adapted over 30 + 30 transitions."""
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.models import BayesianGaussianProcessRegressor
+    from edrgp_tpu_torch.models.bayesian import BayesianGPModel
+    from edrgp_tpu_torch.ops.cuda import rbf
+    D = 3
+    X, y, B, X_test, y_test = _edr_problem(N)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    per_fit = []
+    last = dict(rbf.LAUNCHES)
+
+    def record(model):
+        """The fit's diagnostics and the K and A launches of its NUTS run
+        and posterior caches (G follows each fit, once per kept sample)."""
+        now = dict(rbf.LAUNCHES)
+        per_fit.append(dict(rhat=float(model.diagnostics_["rhat"].max()),
+                            divergences=model.diagnostics_["divergences"],
+                            kept=int(model.samples_.shape[0]),
+                            Q=int(model._X.shape[1]),
+                            launches={k: now[k] - last[k] for k in
+                                      ("rbf_kernel_matrix",
+                                       "rbf_nlml_adjoint")}))
+        last.update(now)
+        return None
+
+    with count_calls(BayesianGPModel, "optimize",
+                     keep=record) as fits:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            BayesianGaussianProcessRegressor(
+                kernels=["RBF"], kernel_options=[{"ARD": True}],
+                num_chains=num_chains, num_warmup=num_warmup,
+                num_samples=num_samples, max_depth=max_depth, device=device),
+            SVDTransformer(), n_components=D).fit(X, y)
+        fit_s = time.perf_counter() - t0
+    fit_launches = dict(rbf.LAUNCHES)
+    model = edr.estimator_.estimator_
+    Xs = edr._preprocessing_transform(X_test)
+    rbf.reset_launches()
+    pred = edr.estimator_.predict(Xs)
+    predict_launches = dict(rbf.LAUNCHES)
+    bitwise = _save_load_bitwise(model, Xs, device)
+    disc = discrepancy(B, edr.components_.T)
+    rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
+    kept = sum(f["kept"] for f in per_fit)
+    emit(phase="bayes_edr", N=N, Q=X.shape[1], n_components=D,
+         num_chains=num_chains, num_warmup=num_warmup,
+         num_samples=num_samples, max_depth=max_depth, fit_seconds=fit_s,
+         fits=per_fit,
+         discrepancy=disc, principal_angles_deg=principal_angles_deg(
+             B, edr.components_.T).tolist(), heldout_rmse=rmse,
+         heldout_y_std=float(np.std(y_test)),
+         noise_variance=model.noise_variance, launches_fit=fit_launches,
+         launches_predict=predict_launches, save_load_bitwise=bitwise,
+         peak_mem_gb=_peak_gb(device))
+    check(disc < 0.1, f"Bayesian EDR discrepancy {disc:.3g} >= 0.1")
+    check(all(f["rhat"] < 1.1 for f in per_fit),
+          f"a fit's split-R-hat is 1.1 or more: {per_fit}")
+    check(np.isfinite(pred).all() and pred.shape == y_test.shape,
+          "bad predictions")
+    check(bitwise, "the Bayesian model's save/load round trip changed its "
+          "predictions")
+    check(fit_launches["rbf_grad_mu"] == kept,
+          f"G did not launch once per kept sample: {fit_launches}, "
+          f"{kept} kept samples in {len(fits)} fits")
+    check(predict_launches["rbf_kernel_matrix"] == model.samples_.shape[0],
+          f"K did not serve each kept sample's predict: {predict_launches}")
+    launches = {k: fit_launches[k] + predict_launches[k]
+                for k in fit_launches}
+    del edr, model
+    _empty_cache(device)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1535,6 +2016,10 @@ def main():
     cls_sparse_launches = phase_cls_sparse_edr()
     phase_het_reference()
     het_launches = phase_het_edr()
+    phase_sampler_reference()
+    nuts_launches, theta_hat, nuts_qs = phase_nuts_gp()
+    smc_launches = phase_smc_gp(theta_hat, nuts_qs)
+    bayes_launches = phase_bayes_edr()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -1545,7 +2030,10 @@ def main():
                               "svgp_edr": svgp_edr_launches[name],
                               "cls_ep_edr": cls_ep_launches[name],
                               "cls_sparse_edr": cls_sparse_launches[name],
-                              "het_edr": het_launches[name]},
+                              "het_edr": het_launches[name],
+                              "nuts_gp": nuts_launches[name],
+                              "smc_gp": smc_launches[name],
+                              "bayes_edr": bayes_launches[name]},
          **summary[name]}
         for name, where in KERNELS.items()]}), flush=True)
     print(smi, flush=True)

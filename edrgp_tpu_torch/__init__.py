@@ -14,7 +14,9 @@ gradients behind ``models.SVGPRegressor``, trained from memory or streamed
 from disk by a native loader (``data``); binary GP classification (VI, EP,
 sparse VI, EP-DTC) behind ``models.GaussianProcessClassifier`` and
 ``models.SparseGaussianProcessClassifier``; and the heteroscedastic
-regressor ``models.GaussianProcessHeteroscedasticRegressor``.
+regressor ``models.GaussianProcessHeteroscedasticRegressor``; the HMC,
+NUTS and SMC samplers (``inference``) and the fully Bayesian regressor
+``models.BayesianGaussianProcessRegressor``.
 """
 
 from .edr.base import BaseEDR, BlockEDR, IterativeEDR

@@ -9,6 +9,13 @@ parameters are a tuple of its parts' dicts in JAX and the parts
 named tuple such as the SVGP's ``SVGPState(theta1, theta2)`` maps by its
 field names.  Both sides hold unconstrained values, so a round trip is
 exact.
+
+The samplers and the Bayesian regressor work on flat vectors θ in the
+order ``jax.flatten_util.ravel_pytree`` gives ``{"kernel": …, "raw_noise":
+…}`` (:func:`edrgp_tpu_torch.ops.exact.theta_layout`); :func:`theta_from_jax`
+and :func:`theta_to_jax` map one such vector to and from the pytree, and a
+JAX ``BayesianGPModel``'s ``samples_`` are already in that order
+(:func:`samples_from_jax`).
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "theta_from_jax",
+           "theta_to_jax", "samples_from_jax"]
 
 
 def params_from_jax(params_np, prefix: str = "") -> dict:
@@ -62,3 +70,42 @@ def params_to_numpy(module: torch.nn.Module) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = value.detach().cpu().numpy()
     return _tuples(out)
+
+
+def theta_from_jax(params_np, kernel) -> np.ndarray:
+    """``{"kernel": …, "raw_noise": …}`` with numpy leaves → θ [D] in the
+    layout of ``kernel`` (a port kernel of the same structure)."""
+    from .ops.exact import theta_layout
+    flat = params_from_jax(params_np)
+    parts = [flat["kernel." + name].numpy().reshape(-1)
+             for name, _ in theta_layout(kernel)]
+    return np.concatenate(parts + [flat["raw_noise"].numpy().reshape(1)])
+
+
+def theta_to_jax(theta, kernel) -> dict:
+    """θ [D] → ``{"kernel": …, "raw_noise": …}`` with numpy leaves (tuples
+    for the parts of a sum or product)."""
+    from .ops.exact import unflatten_theta
+    params, raw_noise = unflatten_theta(
+        kernel, torch.as_tensor(np.asarray(theta, np.float64))[None])
+    out: dict = {}
+    for path, value in params.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value[0].numpy()
+    return {"kernel": _tuples(out), "raw_noise": raw_noise[0].numpy()}
+
+
+def samples_from_jax(samples, kernel) -> torch.Tensor:
+    """A JAX ``BayesianGPModel.samples_`` [S, D] → the port's samples (the
+    same numbers: both packages lay θ out alike), checked against the
+    width of ``kernel``'s θ."""
+    from .ops.exact import theta_layout
+    samples = torch.tensor(np.asarray(samples, np.float64))
+    width = sum(s.numel() for _, s in theta_layout(kernel)) + 1
+    if samples.ndim != 2 or samples.shape[1] != width:
+        raise ValueError(f"samples of shape {tuple(samples.shape)}; the "
+                         f"kernel and the noise take {width} entries")
+    return samples

@@ -1,5 +1,6 @@
 """GP estimators (sklearn interface, without sklearn)."""
 
+from .bayesian import BayesianGaussianProcessRegressor
 from .classification import (GaussianProcessClassifier,
                              SparseGaussianProcessClassifier)
 from .heteroscedastic import GaussianProcessHeteroscedasticRegressor
@@ -9,4 +10,5 @@ from .svgp import SVGPRegressor
 __all__ = ["GaussianProcessRegressor", "SparseGaussianProcessRegressor",
            "SVGPRegressor", "GaussianProcessClassifier",
            "SparseGaussianProcessClassifier",
-           "GaussianProcessHeteroscedasticRegressor"]
+           "GaussianProcessHeteroscedasticRegressor",
+           "BayesianGaussianProcessRegressor"]

@@ -1,7 +1,7 @@
 """Fitted GP model objects with a GPy-compatible surface.
 
 The port of :mod:`edrgp_tpu.models.state` (exact GP and SGPR; the SVGP,
-classification and heteroscedastic models add themselves to
+classification, heteroscedastic and Bayesian models add themselves to
 ``_MODEL_CLASSES`` from their modules, which ``models`` imports).  A model is
 an ``nn.Module`` whose ``state_dict()`` keys are the JAX package's pytree
 paths (``kernel.variance``, ``kernel.lengthscale``, ``raw_noise``, ``Z``),

@@ -18,6 +18,11 @@ rbf_kernel_matrix      rbf_kernel_matrix (pallas_call :98)      K(X, X) in the
 rbf_grad_mu            rbf_grad_mu (pallas_call :172)           dμ/dx*
 rbf_nlml_adjoint       rbf_nlml_adjoint (pallas_call :262)      NLML backward
 =====================  ======================================  =============
+
+K and A also take a batch of chains, the counterpart of ``jax.vmap`` over
+the JAX functions (the samplers' NLML, ``ops.exact.nlml_chains``): a leading
+chain axis on every input, σ² one per chain, and on the card one launch of
+the same kernel per chain, so each chain's bits are those of a single call.
 """
 
 from __future__ import annotations
@@ -72,19 +77,31 @@ def _on_card(*tensors: torch.Tensor) -> bool:
 
 
 def _lengthscale(lengthscale, Q: int, like: torch.Tensor) -> torch.Tensor:
+    """ℓ broadcast to [Q], or to [C, Q] for a chain batch ``like`` [C, N, Q]."""
     if isinstance(lengthscale, torch.Tensor):
         lengthscale = lengthscale.detach()
     ls = torch.as_tensor(lengthscale, dtype=like.dtype, device=like.device)
-    return ls.broadcast_to((Q,))
+    return ls.broadcast_to(like.shape[:-2] + (Q,))
 
 
-def _scalar(sigma2, like: torch.Tensor) -> torch.Tensor:
-    """σ² as a one-element float32 tensor on the card: the kernel reads it
-    there, so the host never waits for its value."""
+def _scalar(sigma2, like: torch.Tensor, chains: int = 1) -> torch.Tensor:
+    """σ² as ``chains`` contiguous float32 values on the card (one number
+    or one per chain): the kernel reads it there, so the host never waits
+    for its value."""
     if isinstance(sigma2, torch.Tensor):
         sigma2 = sigma2.detach()
     return torch.as_tensor(sigma2, dtype=torch.float32,
-                           device=like.device).reshape(1).contiguous()
+                           device=like.device).reshape(-1).expand(
+                               chains).contiguous()
+
+
+def _per_matrix(sigma2, like: torch.Tensor):
+    """σ² (a number or one per chain) shaped to scale a [C, M, N] batch;
+    as it is for a single [M, N] matrix."""
+    if like.ndim == 2:
+        return sigma2
+    return torch.as_tensor(sigma2, dtype=like.dtype,
+                           device=like.device).reshape(-1, 1, 1)
 
 
 def _launch(name: str, *args) -> None:
@@ -98,10 +115,15 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _check_rows(name: str, A: torch.Tensor, B: torch.Tensor) -> None:
-    if A.ndim != 2 or B.ndim != 2 or A.shape[1] != B.shape[1]:
-        raise ValueError(f"{name}: need [M, Q] and [N, Q] inputs, got "
-                         f"{tuple(A.shape)} and {tuple(B.shape)}")
+def _check_rows(name: str, A: torch.Tensor, B: torch.Tensor,
+                chains: bool = False) -> None:
+    """[M, Q] and [N, Q]; with ``chains`` also [C, M, Q] and [C, N, Q]."""
+    ok = (A.ndim == B.ndim and A.ndim in ((2, 3) if chains else (2,))
+          and A.shape[:-2] == B.shape[:-2] and A.shape[-1] == B.shape[-1])
+    if not ok:
+        raise ValueError(f"{name}: need [M, Q] and [N, Q] inputs"
+                         f"{' (or [C, M, Q] and [C, N, Q])' if chains else ''},"
+                         f" got {tuple(A.shape)} and {tuple(B.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,22 +131,30 @@ def _check_rows(name: str, A: torch.Tensor, B: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 def rbf_kernel_matrix_plain(X1s, X2s, sigma2):
-    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N]."""
-    return sigma2 * torch.exp(-0.5 * sq_dist(X1s, X2s))
+    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N]
+    (chain batches as :func:`rbf_kernel_matrix`)."""
+    return _per_matrix(sigma2, X1s) * torch.exp(-0.5 * sq_dist(X1s, X2s))
 
 
 def rbf_kernel_matrix(X1s, X2s, sigma2):
-    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N]."""
-    _check_rows("rbf_kernel_matrix", X1s, X2s)
+    """σ²·exp(−½‖x1−x2‖²) for pre-scaled X1s [M, Q], X2s [N, Q] → [M, N];
+    for a chain batch X1s [C, M, Q], X2s [C, N, Q] and σ² a number or [C]
+    → [C, M, N], one launch per chain."""
+    _check_rows("rbf_kernel_matrix", X1s, X2s, chains=True)
     if not _on_card(X1s, X2s):
         return rbf_kernel_matrix_plain(X1s, X2s, sigma2)
-    (M, Q), N = X1s.shape, X2s.shape[0]
+    (M, Q), N = X1s.shape[-2:], X2s.shape[-2]
     x1, x2 = X1s.contiguous(), X2s.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x1.device)
+    out = torch.empty((*x1.shape[:-1], N), dtype=torch.float32,
+                      device=x1.device)
     if M and N:
-        s2 = _scalar(sigma2, x1)
-        _launch("rbf_kernel_matrix", x1.data_ptr(), x2.data_ptr(),
-                s2.data_ptr(), out.data_ptr(), M, N, Q)
+        x1b, x2b = x1.view(-1, M, Q), x2.view(-1, N, Q)
+        outb = out.view(-1, M, N)
+        s2 = _scalar(sigma2, x1, outb.shape[0])
+        for c in range(outb.shape[0]):
+            _launch("rbf_kernel_matrix", x1b[c].data_ptr(),
+                    x2b[c].data_ptr(), s2[c].data_ptr(), outb[c].data_ptr(),
+                    M, N, Q)
     return out
 
 
@@ -230,42 +260,52 @@ def rbf_grad_mu(Xnew, X, alpha, lengthscale, sigma2):
 # ---------------------------------------------------------------------------
 
 def rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2):
-    """(P, r) with P = (W∘K)·Xs and r = (W∘K)·1, K = K(Xs, Xs), Xs = X/ℓ."""
-    ls = _lengthscale(lengthscale, X.shape[1], X)
-    Xs = X / ls
+    """(P, r) with P = (W∘K)·Xs and r = (W∘K)·1, K = K(Xs, Xs), Xs = X/ℓ
+    (chain batches as :func:`rbf_nlml_adjoint`)."""
+    ls = _lengthscale(lengthscale, X.shape[-1], X)
+    Xs = X / ls[..., None, :]
     A = W * rbf_kernel_matrix_plain(Xs, Xs, sigma2)
-    return A @ Xs, A.sum(1)
+    return A @ Xs, A.sum(-1)
 
 
 def rbf_nlml_adjoint(X, W, lengthscale, sigma2):
     """(P [N, Q], r [N]) for X [N, Q] unscaled and any [N, N] W (the
     cotangent of K); reads W once and recomputes K on the fly.  Rows and
     columns are not symmetrized: the NLML chain rule downstream needs a
-    symmetric W."""
-    N = X.shape[0]
-    if X.ndim != 2 or W.shape != (N, N):
-        raise ValueError(f"rbf_nlml_adjoint: need X [N, Q] and W [N, N], "
-                         f"got {tuple(X.shape)} and {tuple(W.shape)}")
+    symmetric W.  A chain batch X [C, N, Q], W [C, N, N], ℓ [C, Q] (or
+    broadcastable), σ² a number or [C] gives P [C, N, Q], r [C, N], one
+    launch per chain."""
+    N = X.shape[-2] if X.ndim >= 2 else -1
+    if X.ndim not in (2, 3) or W.shape != (*X.shape[:-2], N, N):
+        raise ValueError(f"rbf_nlml_adjoint: need X [N, Q] and W [N, N] "
+                         f"(or [C, N, Q] and [C, N, N]), got "
+                         f"{tuple(X.shape)} and {tuple(W.shape)}")
     if not _on_card(X, W):
         return rbf_nlml_adjoint_plain(X, W, lengthscale, sigma2)
-    Q, dev = X.shape[1], X.device
-    ls = _lengthscale(lengthscale, Q, X)
-    # The scaled rows transposed, [Q, ldx] with 16-byte aligned rows: the
-    # kernel stages a tile's columns from Q contiguous runs.  At least one
-    # row, so that the kernel always has an aligned address to name.
-    ldx = -(-N // 4) * 4
-    xsT = torch.empty((max(Q, 1), ldx), dtype=torch.float32, device=dev)
-    torch.div(X.detach().T, ls[:, None], out=xsT[:Q, :N])
-    w = W.detach().contiguous()
-    P = torch.empty((N, Q), dtype=torch.float32, device=dev)
-    r = torch.empty((N,), dtype=torch.float32, device=dev)
+    Q, dev = X.shape[-1], X.device
+    C = W.shape[0] if W.ndim == 3 else 1
+    ls = _lengthscale(lengthscale, Q, X).reshape(C, Q)
+    xb, w = X.detach().reshape(C, N, Q), W.detach().contiguous().view(C, N, N)
+    P = torch.empty((*X.shape[:-2], N, Q), dtype=torch.float32, device=dev)
+    r = torch.empty(X.shape[:-1], dtype=torch.float32, device=dev)
     if N:
-        s2 = _scalar(sigma2, X)
+        # The scaled rows transposed, [Q, ldx] a chain with 16-byte aligned
+        # rows: the kernel stages a tile's columns from Q contiguous runs.
+        # At least one row, so that the kernel always has an aligned
+        # address to name.  The chains' launches queue on one stream, so
+        # they share the partial sums.
+        ldx = -(-N // 4) * 4
+        xsT = torch.empty((C, max(Q, 1), ldx), dtype=torch.float32,
+                          device=dev)
+        torch.div(xb.mT, ls[:, :, None], out=xsT[:, :Q, :N])
+        s2 = _scalar(sigma2, X, C)
         splits, cols = column_split(N, N, _sm_count(dev.index),
                                     _contract_tile())
         part = torch.empty((splits, N, Q + 1), dtype=torch.float32,
                            device=dev)
-        _launch("rbf_nlml_adjoint", xsT.data_ptr(), ldx, w.data_ptr(),
-                s2.data_ptr(), P.data_ptr(), r.data_ptr(), part.data_ptr(),
-                N, Q, splits, cols)
+        Pb, rb = P.view(C, N, Q), r.view(C, N)
+        for c in range(C):
+            _launch("rbf_nlml_adjoint", xsT[c].data_ptr(), ldx,
+                    w[c].data_ptr(), s2[c].data_ptr(), Pb[c].data_ptr(),
+                    rb[c].data_ptr(), part.data_ptr(), N, Q, splits, cols)
     return P, r

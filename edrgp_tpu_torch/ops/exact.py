@@ -10,6 +10,13 @@ A plain full-dimension RBF kernel runs through the three kernels of
 :mod:`edrgp_tpu_torch.ops.cuda.rbf` (float32 on the card; on the CPU their
 plain versions, in any dtype).  Any other kernel, or float64 on the card,
 takes the generic autograd path, as ``edrgp_tpu/ops/exact.py:257`` does.
+
+:func:`nlml_chains` and :func:`posterior_chains` take a batch of flat
+hyperparameter vectors θ [C, D] (the samplers' chains, the Bayesian
+regressor's posterior samples), laid out as ``jax.flatten_util.ravel_pytree``
+lays out the JAX package's ``{"kernel": …, "raw_noise": …}``
+(:func:`theta_layout`), so one sample vector means the same hyperparameters
+in both packages.
 """
 
 from __future__ import annotations
@@ -17,16 +24,19 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.func import functional_call
 
 from .cuda.rbf import rbf_grad_mu, rbf_kernel_matrix, rbf_nlml_adjoint
 from .kernels import RBF, Kernel, positive
-from .linalg import cho_solve, logdet_and_quad, safe_cholesky, tri_solve
+from .linalg import (cho_solve, jitter_ladder, logdet_and_quad,
+                     safe_cholesky, tri_solve)
 
 __all__ = [
     "nlml", "posterior", "predict", "predict_mean_grad", "predict_var_grad",
     "predict_mean_grad_batched", "predict_var_grad_batched", "map_batched",
     "grad_batch_size", "weighted_kernel_grad", "grad_rows",
-    "noise_variance", "noisy_K", "RBFKy",
+    "noise_variance", "noisy_K", "RBFKy", "theta_layout", "flatten_theta",
+    "unflatten_theta", "nlml_chains", "posterior_chains",
 ]
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -54,36 +64,41 @@ def _scaled_rbf(kernel: RBF, Q: int):
 class RBFKy(torch.autograd.Function):
     """Ky = σ²·exp(−½‖(xᵢ−xⱼ)/ℓ‖²) + diag(σₙ²) with the fused kernel
     adjoint; the noise is a scalar σₙ² or one variance per row [N] (the
-    heteroscedastic NLML).
+    heteroscedastic NLML).  With ℓ [C, Q], σ² [C] and σₙ² [C] it builds a
+    chain batch [C, N, N] on the shared X, the counterpart of ``jax.vmap``
+    over chains: K and A then launch once per chain.
 
     The port of ``_rbf_ky_fused`` (``edrgp_tpu/ops/exact.py:64``).  The
     forward builds K with :func:`rbf_kernel_matrix`; the backward turns the
     cotangent W of Ky into (P, r) = ((W∘K)·Xs, (W∘K)·1) with
     :func:`rbf_nlml_adjoint` and then into the parameter gradients by closed
-    forms.  VALID ONLY FOR A SYMMETRIC W, which
+    forms, reduced per chain.  VALID ONLY FOR A SYMMETRIC W, which
     :func:`~edrgp_tpu_torch.ops.linalg.logdet_and_quad` guarantees; keep
     this private to the NLML path.
     """
 
     @staticmethod
     def forward(ctx, ls, var, noise, X):
-        Xs = X / ls
+        Xs = X / ls[..., None, :]
         Ky = rbf_kernel_matrix(Xs, Xs, var)
-        Ky.diagonal().add_(noise)
+        Ky.diagonal(dim1=-2, dim2=-1).add_(
+            noise if ls.ndim == 1 else noise[:, None])
         ctx.save_for_backward(ls, var, noise, X)
         return Ky
 
     @staticmethod
     def backward(ctx, W):
         ls, var, noise, X = ctx.saved_tensors
-        P, r = rbf_nlml_adjoint(X, W, ls, var)
-        Xs = X / ls
-        dvar = r.sum() / var
+        chains = ls.ndim == 2
+        P, r = rbf_nlml_adjoint(X.expand(*ls.shape[:-1], *X.shape)
+                                if chains else X, W, ls, var)
+        Xs = X / ls[..., None, :]
+        dvar = r.sum(-1) / var
         # symmetric W: Σᵢⱼ Aᵢⱼ (xsᵢ − xsⱼ)² = 2Σᵢ rᵢ xsᵢ² − 2Σᵢ xsᵢ Pᵢ
-        dls = 2.0 * (r[:, None] * Xs * Xs - Xs * P).sum(0) / ls
-        dnoise = W.diagonal()
-        if noise.ndim == 0:
-            dnoise = dnoise.sum()
+        dls = 2.0 * (r[..., None] * Xs * Xs - Xs * P).sum(-2) / ls
+        dnoise = W.diagonal(dim1=-2, dim2=-1)
+        if noise.ndim == 0 or chains:
+            dnoise = dnoise.sum(-1)
         dX = None
         if ctx.needs_input_grad[3]:
             dX = 2.0 * (P - Xs * r[:, None]) / ls
@@ -221,3 +236,85 @@ def predict_var_grad_batched(gp, X, cache, Xnew, batch: int = 4096):
     """d var/dx* in ``batch``-row chunks (see :func:`map_batched`)."""
     L = cache[0]
     return map_batched(lambda c: _var_grad(gp.kernel, X, L, c), Xnew, batch)
+
+
+# ---------------------------------------------------------------------------
+# A batch of flat hyperparameter vectors θ [C, D]: the samplers' chains
+# ---------------------------------------------------------------------------
+
+def _path_key(name: str):
+    """Sort key of a dotted parameter path: the parts of a sum or product
+    (``kernels.0``, ``kernels.1``, …) in order, names alphabetically."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in name.split("."))
+
+
+def theta_layout(kernel: Kernel) -> list:
+    """[(name, shape)] of the kernel's parameters in the order of θ:
+    ``jax.flatten_util.ravel_pytree`` of ``{"kernel": …, "raw_noise": …}``
+    sorts dict keys and keeps a tuple's order, so the kernel's parameters
+    come first (for an RBF: lengthscale, then variance) and ``raw_noise``
+    is θ's last entry."""
+    return sorted(((n, p.shape) for n, p in kernel.named_parameters()),
+                  key=lambda item: _path_key(item[0]))
+
+
+def flatten_theta(kernel: Kernel, raw_noise) -> torch.Tensor:
+    """θ [D] of the kernel's current parameters and an unconstrained noise
+    (:func:`theta_layout`'s order)."""
+    params = dict(kernel.named_parameters())
+    parts = [params[n].detach().reshape(-1) for n, _ in theta_layout(kernel)]
+    raw_noise = torch.as_tensor(raw_noise, dtype=parts[0].dtype,
+                                device=parts[0].device)
+    return torch.cat(parts + [raw_noise.detach().reshape(1)])
+
+
+def unflatten_theta(kernel: Kernel, theta: torch.Tensor):
+    """({name: [C, *shape]}, raw_noise [C]) from θ [C, D]."""
+    out, at = {}, 0
+    for name, shape in theta_layout(kernel):
+        n = shape.numel()
+        out[name] = theta[:, at:at + n].reshape(theta.shape[0], *shape)
+        at += n
+    if at + 1 != theta.shape[1]:
+        raise ValueError(f"theta has {theta.shape[1]} entries per chain; "
+                         f"the kernel and the noise take {at + 1}")
+    return out, theta[:, at]
+
+
+def _Ky_chains(kernel: Kernel, theta: torch.Tensor, X: torch.Tensor):
+    """K(X, X) + σₙ²I for every chain of θ [C, D] → [C, N, N]: through
+    :class:`RBFKy` (K per chain) when the RBF kernels serve the kernel,
+    else each chain's ``kernel.K`` at its own parameters."""
+    if _fused(kernel, X):      # every parameter of an RBF is positive
+        params, noise = unflatten_theta(kernel, positive(theta))
+        ls = params["lengthscale"].expand(theta.shape[0], X.shape[1])
+        return RBFKy.apply(ls, params["variance"], noise, X)
+    params, raw_noise = unflatten_theta(kernel, theta)
+    noise = positive(raw_noise)
+    K = torch.stack([
+        functional_call(kernel, {k: v[c] for k, v in params.items()},
+                        (X, X)) for c in range(theta.shape[0])])
+    eye = torch.eye(X.shape[0], dtype=K.dtype, device=K.device)
+    return K + noise[:, None, None] * eye
+
+
+def nlml_chains(kernel: Kernel, theta: torch.Tensor, X: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """NLML [C] of each chain's θ [C, D] on the shared (X, y): the
+    counterpart of ``jax.vmap(lambda q: exact.nlml(kernel, unravel(q), X,
+    y))`` (``edrgp_tpu/models/bayesian.py:71-76``).  Differentiable in θ;
+    each chain factors its own matrix on its own jitter ladder, and a
+    chain whose matrix fails every rung gives NaN in its own entry only."""
+    n = X.shape[0]
+    logdet, quad = logdet_and_quad(_Ky_chains(kernel, theta, X), y)
+    return 0.5 * (n * _LOG2PI + logdet + quad)
+
+
+@torch.no_grad()
+def posterior_chains(kernel: Kernel, theta: torch.Tensor, X, y):
+    """Posterior caches (L [C, N, N], α [C, N]) of every θ of a batch: one
+    batched Cholesky."""
+    L = jitter_ladder(_Ky_chains(kernel, theta, X))[1]
+    alpha = cho_solve(L, y.expand(L.shape[:-1])[..., None])[..., 0]
+    return L, alpha

@@ -52,10 +52,11 @@ def _safe_sqrt(r2: torch.Tensor) -> torch.Tensor:
 
 def sq_dist(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distances ‖aᵢ−bⱼ‖² via the matmul trick, clamped at
-    0 as in the JAX package (so the two agree to rounding)."""
-    a2 = (A * A).sum(-1)[:, None]
-    b2 = (B * B).sum(-1)[None, :]
-    return (a2 + b2 - 2.0 * (A @ B.T)).clamp_min(0.0)
+    0 as in the JAX package (so the two agree to rounding); [.., M, Q] and
+    [.., N, Q] give [.., M, N] for any leading batch dimensions."""
+    a2 = (A * A).sum(-1)[..., :, None]
+    b2 = (B * B).sum(-1)[..., None, :]
+    return (a2 + b2 - 2.0 * (A @ B.mT)).clamp_min(0.0)
 
 
 def _raw(value, n: Optional[int] = None) -> nn.Parameter:
@@ -102,6 +103,11 @@ class Kernel(nn.Module):
 
     def K(self, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward(self, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+        """``K(X1, X2)``, so that ``torch.func.functional_call`` evaluates
+        the kernel at parameters it is given."""
+        return self.K(X1, X2)
 
     def Kdiag(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

@@ -3,8 +3,10 @@ the NLML gradient through the kernels against plain autograd, a small EDR
 fit on the card against the CPU float64 fit, an SGPR model's gradients
 through kernel G against a CPU float64 model, the SVGP ops, the stream feed,
 G and K at the classifier EDR's shapes, the heteroscedastic NLML's per-row
-noise through kernels K and A, and each classifier against its CPU float64
-model.
+noise through kernels K and A, each classifier against its CPU float64
+model, and the samplers' chain batches: K and A over a leading chain axis,
+a chain whose factorization fails, ``nlml_chains`` and the Bayesian
+regressor's predictions against CPU float64.
 
 Every test needs a card and skips without one.  The file imports no JAX, so
 on the GPU machine (which has no JAX) it runs without the suite's
@@ -529,3 +531,120 @@ def test_cuda_classifier_matches_cpu_float64(card, name):
     for a, b in ((gpu.predict(Xs)[0], cpu.predict(Xs)[0]),
                  (dmu, cpu.predictive_gradients(Xs)[0])):
         assert np.abs(a - b).max() < 1e-4 * np.abs(b).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 16])
+@pytest.mark.parametrize("N", [517, 1023, 1024])
+def test_cuda_chain_batched_kernels_match_plain(card, N, C):
+    """K and A on a chain batch ([C, N, Q], ℓ and σ² one per chain, Q=4 as
+    in the samplers' NLML) against their plain versions (K 1e-5, A 1e-4 of
+    the largest entry), one launch per chain, and each chain's slice the
+    bits of a single-chain call."""
+    g = torch.Generator().manual_seed(N + C)
+    Q = 4
+    X = torch.randn(C, N, Q, generator=g).to(card)
+    ls = (torch.rand(C, Q, generator=g) + 0.5).to(card) * Q ** 0.5
+    s2 = (1.0 + torch.rand(C, generator=g)).to(card)
+    W = torch.randn(C, N, N, generator=g).to(card)
+    W = W + W.mT
+    Xs = X / ls[:, None, :]
+    rbf.reset_launches()
+    K = rbf.rbf_kernel_matrix(Xs, Xs, s2)
+    P, r = rbf.rbf_nlml_adjoint(X, W, ls, s2)
+    torch.cuda.synchronize()
+    assert rbf.LAUNCHES["rbf_kernel_matrix"] == C
+    assert rbf.LAUNCHES["rbf_nlml_adjoint"] == C
+    assert _rel(K, rbf.rbf_kernel_matrix_plain(Xs, Xs, s2)) < 1e-5
+    P0, r0 = rbf.rbf_nlml_adjoint_plain(X, W, ls, s2)
+    assert _rel(P, P0) < 1e-4 and _rel(r, r0) < 1e-4
+    for c in range(C):
+        assert torch.equal(K[c], rbf.rbf_kernel_matrix(Xs[c], Xs[c],
+                                                       s2[c]))
+        Pc, rc = rbf.rbf_nlml_adjoint(X[c], W[c], ls[c], s2[c])
+        assert torch.equal(P[c], Pc) and torch.equal(r[c], rc)
+
+
+def _chain_target(device, N=500, Q=4, C=16):
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(N, Q))
+    y = np.sin(1.3 * X[:, 0]) + 0.5 * np.cos(X[:, 1]) \
+        + 0.15 * rng.normal(size=N)
+    theta = np.array([0.5, 1.0, 3.0, 3.0, 0.0, -3.5]) \
+        + 0.1 * rng.normal(size=(C, Q + 2))
+    dt = config.default_dtype(device)
+    return (torch.as_tensor(X, dtype=dt, device=device),
+            torch.as_tensor(y, dtype=dt, device=device),
+            torch.as_tensor(theta, dtype=dt, device=device))
+
+
+@pytest.mark.cuda
+def test_cuda_nlml_chains_matches_cpu_float64(card):
+    """16 chains' NLML and θ-gradient on the card (K and A once per chain)
+    against CPU float64: values 1e-4 relative, gradients 1e-3 of each
+    parameter's largest entry."""
+    out = []
+    for device in (card, "cpu"):
+        X, y, theta = _chain_target(device)
+        theta.requires_grad_(True)
+        rbf.reset_launches()
+        v = exact.nlml_chains(RBF(4, ARD=True).to(X), theta, X, y)
+        (g,) = torch.autograd.grad(v.sum(), theta)
+        out.append((v.double().cpu(), g.double().cpu(), dict(rbf.LAUNCHES)))
+    (v, g, launches), (v0, g0, _) = out
+    assert launches["rbf_kernel_matrix"] == 16
+    assert launches["rbf_nlml_adjoint"] == 16
+    assert _rel(v, v0) < 1e-4
+    for d in range(g0.shape[1]):
+        assert _rel(g[:, d], g0[:, d]) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_failed_chain_stays_in_its_lane(card):
+    """A chain at σ² = inf factors on no rung of the jitter ladder: its
+    NLML and gradient are not finite, and every other chain keeps the
+    bits it has in a batch without the failure."""
+    from edrgp_tpu_torch.inference.hmc import value_and_grad
+    X, y, theta = _chain_target(card)
+    kernel = RBF(4, ARD=True).to(X)
+
+    def f(q):
+        return exact.nlml_chains(kernel, q, X, y)
+
+    bad = theta.clone()
+    bad[5, 4] = float("inf")
+    v, g = value_and_grad(f, theta)
+    vb, gb = value_and_grad(f, bad)
+    keep = torch.arange(16, device=card) != 5
+    assert not torch.isfinite(vb[5])
+    assert torch.equal(vb[keep], v[keep]) and torch.equal(gb[keep], g[keep])
+
+
+@pytest.mark.cuda
+def test_cuda_bayesian_predictions_match_cpu_float64(card):
+    """The Bayesian regressor at 8 fixed posterior samples on the card
+    (K(X, X*) and G once per sample) against CPU float64: the mixture
+    mean and variance and the averaged dμ/dx* to 1e-4 of their largest
+    entries."""
+    from edrgp_tpu_torch.models.bayesian import BayesianGPModel
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(300, 4))
+    y = np.tanh(X[:, 0] - X[:, 1]) + 0.1 * rng.normal(size=300)
+    Xs = rng.normal(size=(200, 4))
+    samples = np.array([0.5, 0.5, 2.0, 2.0, 0.0, -4.0]) \
+        + 0.2 * rng.normal(size=(8, 6))
+    out = []
+    for device in (card, "cpu"):
+        m = BayesianGPModel(X, y, RBF(4, ARD=True), device=device)
+        m.samples_ = torch.as_tensor(samples, dtype=m._X.dtype,
+                                     device=m._X.device)
+        m._cache = None
+        rbf.reset_launches()
+        mean, var = m.predict(Xs)
+        k_launches = rbf.LAUNCHES["rbf_kernel_matrix"]
+        dmu, sd = m.predictive_gradients(Xs)
+        out.append((mean, var, dmu, sd, k_launches,
+                    rbf.LAUNCHES["rbf_grad_mu"]))
+    for a, b in zip(out[0][:4], out[1][:4]):
+        assert np.abs(a - b).max() < 1e-4 * np.abs(b).max()
+    assert out[0][4] >= 8 and out[0][5] == 8
