@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact-GP, sparse, SVGP, classifier,
-heteroscedastic and Bayesian EDR paths and its samplers once on an NVIDIA
-GPU.
+heteroscedastic and Bayesian EDR paths, its samplers and its multi-device
+layer once on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases, in order, each printing one JSON line:
 
-0. device — the card, PyTorch and CUDA versions, nvcc;
+0. device — the card, PyTorch and CUDA versions, nvcc, and the process
+   group the sharded phases will run in (backend, world size, NCCL
+   version);
 1. build — compile ``edrgp_tpu_torch/ops/cuda/rbf.cu`` and the native data
    loader (``edrgp_tpu_torch/native/dataloader.cpp``) from the checkout;
+   trace — ``profiling.trace`` of one sharded NLML evaluation in a
+   one-rank NCCL group joined for it: the trace must name kernel K (it
+   runs before the sampler phases, after which PyTorch's profiler loses
+   kernel records: ROADMAP Queue 3);
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card, float32, at the main path's shapes: the largest error relative
    to the plain result's largest entry (limits: K 1e-5, G and A 1e-4), both
@@ -130,17 +136,48 @@ Phases, in order, each printing one JSON line:
    N=1,024, Q=10 (150 warmup and 50 sampling transitions a fit, trees of
    depth 6 at most): each
    fit's R̂ < 1.1, discrepancy < 0.1, G once per kept sample, K once per
-   kept sample in ``predict``, a bitwise save/load round trip.
+   kept sample in ``predict``, a bitwise save/load round trip;
+distributed — join a one-rank NCCL process group on the card (the
+   backend, world size and NCCL version; the barrier; ``checksum`` and
+   ``assert_replicas_agree`` on a parameter dict), which the sharded
+   phases run in; a failed NCCL start raises;
+20. sharded_nlml — the row-slab-sharded NLML value+grad at N=10,000, Q=8
+   on the group's ``data`` dimension against the single-device NLML on the
+   card (value 1e-4 relative, gradients 1e-3 of their largest entry), the
+   same bits twice, one K launch (the slab) an evaluation; ms beside the
+   single-device path's, and a profiler split;
+21. sharded_edr — main_path's EDR with ``GaussianProcessRegressor(
+   method="optimize_sharded")`` and ``gradient_mesh``: discrepancy < 0.1,
+   angles to main_path's subspace, each staged Gram against GᵀG (1e-4), G
+   once a fit; then ``model_gradient_gram`` at N=1,048,576 on svgp_edr's
+   streamed SVGP model against its unsharded G (the same bits, the Gram
+   1e-4);
+22. sharded_svgp — ``make_sharded_svgp_step`` at config 5's shapes
+   (8,192-row batches, M=512, Q=8): 10 steps against ``SVGPModel``'s own
+   from the same start and batches (1e-4 of each largest entry), then
+   steps/s and the kernel launches over 200 sharded steps;
+23. sharded_samplers — ``run_sharded_nuts`` on nuts_gp's target (16
+   chains, warmup 128, 64 samples, depth 8): split-R̂ < 1.05, divergences
+   ≤ 1%, one pooled ε, samples/s; one ``run_sharded_smc_stage`` on 256
+   particles; ``distributed_systematic_resample`` against
+   ``systematic_resample`` with the same u0;
+24. aux — a NUTS state's checkpoint round trip on the card (the same
+   bits), ``StallWatchdog`` on a stall and while beaten, and a
+   ``profiling.trace`` of one sharded NLML evaluation, taken last: it
+   names kernel K with a kernel for every launch, or ``profiling.trace``
+   reports the kernels the profiler lost.
 
 Then one JSON line on the kernels (at N=8,192, Q=10: times, bound, share
 of bound, launches on the main path and, under ``launches_by_path``, on
 each EDR path (main_path, sparse_edr, svgp_stream, svgp_edr, cls_ep_edr,
-cls_sparse_edr, het_edr) and sampler path (nuts_gp, smc_gp, bayes_edr);
+cls_sparse_edr, het_edr), sampler path (nuts_gp, smc_gp, bayes_edr) and
+sharded path (sharded_nlml, sharded_edr, sharded_svgp, sharded_samplers);
 ``library_ms`` is null because no single PyTorch call computes
 any of the three functions), the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Any failure raises and exits non-zero; so does a machine without
-CUDA.  The script imports nothing of JAX.
+CUDA.  The script imports nothing of JAX; the process group it joins is
+destroyed before the last lines.
 """
 
 import contextlib
@@ -251,10 +288,15 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    # The sharded phases at the end run in a one-rank NCCL group, joined
+    # just before them so that no earlier phase runs beside its threads.
     emit(phase="device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         nvcc=_build.nvcc_path())
+         nvcc=_build.nvcc_path(), process_group=dict(
+             backend="nccl", world_size=1,
+             nccl_version=".".join(map(str, torch.cuda.nccl.version())),
+             joined_before="sharded_nlml"))
     return smi
 
 
@@ -332,7 +374,10 @@ def phase_kernels():
     (bayes_edr's first fit), one chain and a batch of 16 chains (nuts_gp's
     group; a 4-tuple names the chains), and 64 (smc_gp's particle chunk)
     in Q=4; G at 1,024² in each Q of bayes_edr's fits and K(X, X*) at
-    1,024 by 2,000 in its last Q=3 (its per-sample predictions)."""
+    1,024 by 2,000 in its last Q=3 (its per-sample predictions).  The
+    sharded paths: K's slab of one rank at sharded_nlml's N=10,000, Q=8
+    (the whole matrix at one rank); sharded_edr's slabs and G at
+    1,048,576 by 512 are shapes above."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     qs = (10, 7, 4, 3)
@@ -345,7 +390,8 @@ def phase_kernels():
                               (8191, 8191, 10), (512, 2000, 3),
                               (512, 4000, 8), *ep_fits, (4096, 4000, 3),
                               (512, 4000, 3), (512, 100000, 10),
-                              (512, 4000, 10), *chains, (1024, 2000, 3)],
+                              (512, 4000, 10), *chains, (1024, 2000, 3),
+                              (10000, 10000, 8)],
         "rbf_grad_mu": [(1000, 1537, 10), *fits, *ep_fits, (8191, 8191, 10),
                         (102400, 8192, 10),
                         *[(1048576, 512, Q) for Q in qs],
@@ -523,7 +569,7 @@ def phase_main_path(device="cuda", N=8192, max_iters=200):
           "bad predictions")
     check(disc < 0.1, f"discrepancy {disc:.3g} >= 0.1")
     phase_gradients(device, X, y)
-    return launches
+    return launches, edr.components_.T
 
 
 def phase_gradients(device, X, y):
@@ -603,6 +649,16 @@ def _profiled(fn, reps=1):
     cpu_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     busy = sum(k.duration for e in cpu_ops for k in e.kernels) / 1e3
     return cpu_ops, wall / reps, busy / reps
+
+
+def _stash(model, name):
+    """Pickle ``model`` under the checkout's git-ignored ``build/`` for a
+    later phase; returns the path."""
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    path = os.path.join(scratch, f"{name}-{os.getpid()}.pickle")
+    model.pickle(path)
+    return path
 
 
 def _sgpr_problem(n, q, rng):
@@ -1118,6 +1174,8 @@ def phase_svgp_edr(device="cuda", N=1_048_576, Q=10, M=512, steps=2000,
     manual = dict(discrepancy=discrepancy(B, comps),
                   principal_angles_deg=principal_angles_deg(B, comps).tolist(),
                   explained_ratio_top3=float(w[::-1][:D].sum() / w.sum()))
+    # sharded_edr's Gram at this size takes the model back from a pickle.
+    handoff = (_stash(model, "svgp_edr"), X, G)
     del model
     _empty_cache(device)
 
@@ -1162,7 +1220,7 @@ def phase_svgp_edr(device="cuda", N=1_048_576, Q=10, M=512, steps=2000,
     check(predict_k >= 1, f"K did not serve predict: {launches}")
     del edr
     _empty_cache(device)
-    return launches
+    return launches, handoff
 
 
 def _edr_problem(N, Q=10, D=3, n_test=2000):
@@ -1990,6 +2048,504 @@ def phase_bayes_edr(device="cuda", N=1024, num_chains=4, num_warmup=150,
     return launches
 
 
+def phase_distributed(device="cuda"):
+    """Join a process group on the card (NCCL, one rank a card of this
+    machine's first: the world is 1 here) and hold the barrier and the
+    replica check; returns the 1-D ``("data",)`` mesh the sharded phases
+    run on."""
+    import torch
+    import torch.distributed as dist
+    from edrgp_tpu_torch.parallel import (assert_replicas_agree, barrier,
+                                          checksum, initialize, make_mesh)
+    t0 = time.perf_counter()
+    dev = initialize(device=device)
+    init_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    barrier()
+    params = {"kernel": {"lengthscale": torch.linspace(0.5, 2.0, 8,
+                                                       device=dev),
+                         "variance": torch.tensor(1.3, device=dev)},
+              "raw_noise": torch.tensor(-2.0, device=dev)}
+    digest = checksum(params)
+    assert_replicas_agree(params)
+    mesh = make_mesh(("data",))
+    nccl = (".".join(map(str, torch.cuda.nccl.version()))
+            if dev.type == "cuda" else None)
+    emit(phase="distributed", backend=backend,
+         world_size=dist.get_world_size(), nccl_version=nccl,
+         device=str(dev), init_seconds=init_s, digest=digest,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"process group backend {backend} on {dev}")
+    return mesh
+
+
+def phase_sharded_nlml(mesh, device="cuda", N=10_000, Q=8):
+    """The row-slab-sharded NLML value+grad at the nlml phase's shape on the
+    ``data`` dimension: against the single-device NLML on the card (value
+    1e-4 relative, each gradient 1e-3 of its largest entry), the same bits
+    twice, one K launch a rank an evaluation (the slab), no A; ms an
+    evaluation beside the single-device path's in the same run, and a
+    torch.profiler split of one evaluation's device time by op."""
+    import torch
+    from edrgp_tpu_torch.models.state import ExactGPModel
+    from edrgp_tpu_torch.ops import exact
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    from edrgp_tpu_torch.parallel import (make_sharded_nlml_value_and_grad,
+                                          shard_rows)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(N, Q))
+    y = np.sin(rng.normal(size=N))
+    m = ExactGPModel(X, y, RBF(Q, ARD=True), normalizer=False, noise_var=0.1,
+                     device=device)
+    vg = make_sharded_nlml_value_and_grad(m, mesh, "data")
+    X_local, y_local = shard_rows(mesh, "data", m._X, m._y)
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    value, grads = vg(X_local, y_local)
+    launches = dict(rbf.LAUNCHES)
+    peak = _peak_gb(device)
+    again = vg(X_local, y_local)
+    same_bits = (torch.equal(again[0], value)
+                 and all(torch.equal(again[1][k], g) for k, g in
+                         grads.items()))
+
+    def single():
+        m.zero_grad()
+        v = exact.nlml(m, m._X, m._y)
+        v.backward()
+        return v
+
+    ref = single()
+    ref = float(ref.detach())
+    value_rel = abs(float(value) - ref) / abs(ref)
+    grad_rel = {k: float((grads[k] - p.grad).abs().max()
+                         / p.grad.abs().max())
+                for k, p in m.named_parameters()}
+    ms = cuda_ms(lambda: vg(X_local, y_local), 5)
+    single_ms = cuda_ms(single, 5)
+    split = None
+    if torch.device(device).type == "cuda":
+        cpu_ops, wall, busy = _profiled(lambda: vg(X_local, y_local))
+        split = {}
+        for e in cpu_ops:
+            t = sum(k.duration for k in e.kernels) / 1e3
+            if t > 0:
+                split[e.name] = split.get(e.name, 0.0) + t
+        split = dict(sorted(split.items(), key=lambda kv: -kv[1])[:10])
+        split = dict(wall_ms=wall, device_busy_ms=busy, split_ms=split)
+    emit(phase="sharded_nlml", N=N, Q=Q, ranks=mesh.size(0),
+         nlml=float(value), nlml_single=float(ref), value_rel_diff=value_rel,
+         grad_max_rel_diff=grad_rel, same_bits_twice=same_bits,
+         ms_per_eval=ms, single_device_ms_per_eval=single_ms,
+         profile=split, launches=launches, peak_mem_gb=peak)
+    check(np.isfinite(float(value)), "non-finite sharded NLML")
+    check(value_rel < 1e-4, f"sharded NLML differs by {value_rel:.3g}")
+    check(max(grad_rel.values()) < 1e-3,
+          f"sharded NLML gradient differs: {grad_rel}")
+    check(same_bits, "two sharded evaluations differ")
+    check(launches["rbf_kernel_matrix"] == 1
+          and launches["rbf_nlml_adjoint"] == 0,
+          f"the sharded NLML did not build its slab by K once: {launches}")
+    del m, vg
+    _empty_cache(device)
+    return launches
+
+
+def phase_sharded_edr(mesh, main_comps, svgp_handoff, device="cuda", N=8192,
+                      max_iters=200):
+    """main_path's EDR with ``GaussianProcessRegressor(method=
+    "optimize_sharded")`` and ``gradient_mesh``: the sharded NLML in every
+    L-BFGS evaluation, the gradients by ``model_gradient_gram`` (G once a
+    fit), each staged Gram against GᵀG (1e-4), discrepancy < 0.1, principal
+    angles to the planted and to main_path's subspace; then
+    ``model_gradient_gram`` at N=1,048,576 on svgp_edr's streamed SVGP
+    model (M=512, back from svgp_edr's pickle) against that phase's
+    unsharded G: the same bits, one G launch, the Gram 1e-4."""
+    from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
+                                 SVDTransformer, discrepancy)
+    from edrgp_tpu_torch.models import GaussianProcessRegressor
+    from edrgp_tpu_torch.models.state import ExactGPModel, load_model
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.parallel import edr_sharded
+    D = 3
+    X, y, B, X_test, y_test = _edr_problem(N)
+
+    def gram_err(out):
+        G, gram = out
+        ref = G.T @ G
+        return float(np.abs(gram - ref).max() / np.abs(ref).max())
+
+    _peak_gb(device, reset=True)
+    rbf.reset_launches()
+    with count_calls(ExactGPModel, "optimize_sharded") as fits, \
+            count_calls(edr_sharded, "model_gradient_gram",
+                        keep=gram_err) as grams:
+        t0 = time.perf_counter()
+        edr = EffectiveDimensionalityReduction(
+            GaussianProcessRegressor(kernels="RBF",
+                                     kernel_options={"ARD": True},
+                                     method="optimize_sharded",
+                                     device=device),
+            SVDTransformer(), n_components=D, gradient_mesh=mesh).fit(
+                X, y, max_iters=max_iters, mesh=mesh)
+        fit_s = time.perf_counter() - t0
+    pred = edr.estimator_.predict(edr._preprocessing_transform(X_test))
+    launches = dict(rbf.LAUNCHES)
+    comps = edr.components_.T
+    disc = discrepancy(B, comps)
+    rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
+    gram_errs = [e for e, _ in grams]
+
+    path, X1m, G1m = svgp_handoff
+    try:
+        model = load_model(path, device=device)
+    finally:
+        os.unlink(path)
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    G, gram = edr_sharded.model_gradient_gram(model, X1m, mesh)
+    gram_s = time.perf_counter() - t0
+    capstone_launches = dict(rbf.LAUNCHES)
+    ref = G1m.astype(np.float64).T @ G1m
+    capstone = dict(N=X1m.shape[0], M=int(model.Z.shape[0]), seconds=gram_s,
+                    same_bits_as_unsharded=bool(np.array_equal(G, G1m)),
+                    gram_rel_err=float(np.abs(gram - ref).max()
+                                       / np.abs(ref).max()),
+                    launches=capstone_launches)
+    emit(phase="sharded_edr", N=N, Q=X.shape[1], n_components=D,
+         fit_seconds=fit_s, fits=len(fits), discrepancy=disc,
+         principal_angles_deg=principal_angles_deg(B, comps).tolist(),
+         angles_to_main_path_deg=principal_angles_deg(main_comps,
+                                                      comps).tolist(),
+         staged_gram_rel_err=gram_errs, heldout_rmse=rmse,
+         heldout_y_std=float(np.std(y_test)), launches=launches,
+         svgp_capstone_gram=capstone, peak_mem_gb=_peak_gb(device))
+    check(disc < 0.1, f"sharded EDR discrepancy {disc:.3g} >= 0.1")
+    check(np.isfinite(pred).all(), "bad sharded EDR predictions")
+    check(len(grams) == len(fits) and max(gram_errs) < 1e-4,
+          f"a staged Gram is not GᵀG: {gram_errs}")
+    check(launches["rbf_grad_mu"] == len(fits),
+          f"G did not launch once a fit: {launches}, {len(fits)} fits")
+    check(launches["rbf_kernel_matrix"] >= len(fits),
+          f"K did not build the sharded slabs: {launches}")
+    check(capstone["same_bits_as_unsharded"],
+          "the sharded SVGP gradients differ from the unsharded ones")
+    check(capstone["gram_rel_err"] < 1e-4,
+          f"the SVGP Gram differs by {capstone['gram_rel_err']:.3g}")
+    check(capstone_launches["rbf_grad_mu"] == 1,
+          f"G did not launch once at N=1,048,576: {capstone_launches}")
+    del edr, model
+    _empty_cache(device)
+    return {k: launches[k] + capstone_launches[k] for k in launches}
+
+
+def phase_sharded_svgp(mesh, device="cuda", B=8192, M=512, Q=8,
+                       n_total=10_000_000, ref_steps=10, steps=200,
+                       lr=5e-3):
+    """``make_sharded_svgp_step`` at config 5's shapes (8,192-row batches,
+    M=512, Q=8, N=10M for the ELBO's scale) on the ``data`` dimension: 10
+    steps from the same start and batches as ``SVGPModel``'s own step
+    (parameters and natural parameters within 1e-4 of their largest
+    entry), then steps/s over 200 steps on batches already on the card;
+    the kernel launches are those of the 200 sharded steps alone."""
+    import torch
+    from edrgp_tpu_torch.models.svgp import SVGPModel, _rho
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.ops.kernels import RBF
+    from edrgp_tpu_torch.parallel import make_sharded_svgp_step, shard_along
+    rng = np.random.default_rng(7)
+    X0, y0, _ = _sgpr_problem(4096, Q, rng)
+    own, sharded = (SVGPModel(X0, y0, RBF(Q, ARD=True), num_inducing=M,
+                              seed=0, device=device) for _ in range(2))
+    Xb, yb, _ = _sgpr_problem((ref_steps + steps) * B, Q, rng)
+    Xb = torch.as_tensor(Xb.reshape(-1, B, Q), dtype=own._X.dtype,
+                         device=device)
+    yb = torch.as_tensor(own.normalizer.normalize(yb).reshape(-1, B),
+                         dtype=own._X.dtype, device=device)
+    step, opt_init = make_sharded_svgp_step(sharded, mesh, n_total, lr=lr)
+    opt, own_opt = opt_init(), torch.optim.Adam(own.parameters(), lr=lr)
+    qstate = sharded.qstate
+    for t in range(ref_steps):
+        own._step(own_opt, Xb[t], yb[t], n_total, _rho(t))
+        qstate, elbo = step(opt, qstate, shard_along(mesh, "data", Xb[t]),
+                            shard_along(mesh, "data", yb[t]), _rho(t))
+    errs = {k: _rel_to_max(p.detach().cpu(), own.state_dict()[k].cpu())
+            for k, p in sharded.state_dict().items()}
+    errs["theta1"] = _rel_to_max(qstate.theta1.cpu(),
+                                 own.qstate.theta1.cpu())
+    errs["theta2"] = _rel_to_max(qstate.theta2.cpu(),
+                                 own.qstate.theta2.cpu())
+    _sync(device)
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(ref_steps, ref_steps + steps):
+        qstate, elbo = step(opt, qstate, shard_along(mesh, "data", Xb[t]),
+                            shard_along(mesh, "data", yb[t]), _rho(t))
+    elbo = float(elbo)
+    wall = time.perf_counter() - t0
+    launches = dict(rbf.LAUNCHES)
+    emit(phase="sharded_svgp", batch=B, num_inducing=M, Q=Q,
+         n_total=n_total, ranks=mesh.size(0), ref_steps=ref_steps,
+         rel_err_vs_own_step=errs, steps=steps, steps_per_s=steps / wall,
+         rows_per_s=steps * B / wall, final_minibatch_elbo=elbo,
+         launches=launches)
+    check(all(np.isfinite(v) and v < 1e-4 for v in errs.values()),
+          f"sharded SVGP steps differ from the model's own: {errs}")
+    check(np.isfinite(elbo), "non-finite sharded SVGP ELBO")
+    del own, sharded, Xb, yb
+    _empty_cache(device)
+    return launches
+
+
+def phase_sharded_samplers(theta_hat, device="cuda", N=1024, Q=4, chains=16,
+                           warmup=128, samples=64, max_depth=8, segment=8,
+                           particles=256):
+    """``run_sharded_nuts`` on nuts_gp's target over a ``chain`` dimension
+    (16 chains from the MAP with the Laplace mass, warmup 128, 64 samples,
+    depth 8): split-R̂ < 1.05, divergences ≤ 1%, one pooled ε, samples/s;
+    K and A once per chain evaluation.  Then one ``run_sharded_smc_stage``
+    on 256 particles (θ̂ + 0.5·N(0, I), β from 0 to the next temperature
+    that keeps half the ESS), and ``distributed_systematic_resample``
+    against ``inference.smc.systematic_resample`` with the same u0."""
+    import torch
+    from edrgp_tpu_torch.inference import hmc
+    from edrgp_tpu_torch.inference.smc import _next_beta, systematic_resample
+    from edrgp_tpu_torch.metrics import (effective_sample_size,
+                                         potential_scale_reduction)
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.parallel import (distributed_systematic_resample,
+                                          make_mesh, run_sharded_nuts,
+                                          run_sharded_smc_stage, shard_along)
+    mesh = make_mesh(("chain",))
+    _, logprob, loglik, logprior = _gp_target(device, N, Q)
+    inv_mass0 = hmc.curvature_inv_mass(logprob, theta_hat)
+    D = theta_hat.shape[0]
+    q0 = theta_hat + 0.05 * torch.as_tensor(
+        np.random.default_rng(1).normal(size=(chains, D)),
+        dtype=theta_hat.dtype, device=theta_hat.device)
+    clock, calls = _SegmentClock(), []
+    _sync(device)
+    rbf.reset_launches()
+    t0 = clock.last = time.perf_counter()
+    qs, info = run_sharded_nuts(
+        _counting(logprob, calls), q0, 0, mesh, chain_axis="chain",
+        num_warmup=warmup, num_samples=samples, max_depth=max_depth,
+        segment_len=segment, inv_mass0=inv_mass0.cpu().numpy(),
+        on_segment=clock)
+    wall = time.perf_counter() - t0
+    nuts_launches = dict(rbf.LAUNCHES)
+    steady = clock.sample[1:] or clock.sample
+    rhat = potential_scale_reduction(qs)
+    ess = effective_sample_size(qs)
+    transitions = chains * samples
+    eps = np.asarray(info["step_size"])
+
+    parts0 = theta_hat + 0.5 * torch.as_tensor(
+        np.random.default_rng(2).normal(size=(particles, D)),
+        dtype=theta_hat.dtype, device=theta_hat.device)
+    with torch.no_grad():
+        beta = float(_next_beta(loglik(parts0), 0.0, 0.5 * particles))
+    stage = run_sharded_smc_stage(loglik, logprior, mesh,
+                                  particle_axis="chain", num_mcmc=3,
+                                  n_leapfrog=10, eps=0.02)
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    parts, logz = stage(shard_along(mesh, "chain", parts0), 0.0, beta, 3)
+    logz = float(logz)
+    stage_s = time.perf_counter() - t0
+    smc_launches = dict(rbf.LAUNCHES)
+    gen = torch.Generator(device=device).manual_seed(4)
+    log_w = torch.randn(particles, generator=gen, device=device)
+    cloud = torch.randn(particles, D, generator=gen, device=device)
+    mine, _ = distributed_systematic_resample(
+        0.37, shard_along(mesh, "chain", log_w),
+        shard_along(mesh, "chain", cloud), mesh, "chain")
+    want = shard_along(mesh, "chain",
+                       cloud[systematic_resample(0.37, log_w)])
+    same_ancestors = bool(torch.equal(mine, want))
+    emit(phase="sharded_samplers", N=N, Q=Q, chains=chains, warmup=warmup,
+         samples=samples, max_depth=max_depth, ranks=mesh.size(0),
+         wall_s=wall, samples_per_s=chains * segment
+         / float(np.median(steady)),
+         samples_per_s_incl_warmup=transitions / wall,
+         max_split_rhat=float(rhat.max()), min_ess=float(ess.min()),
+         divergences=info["divergences"], accept_rate=info["accept_rate"],
+         step_size=eps.tolist(), chain_evaluations=sum(calls),
+         nuts_launches=nuts_launches, smc_particles=particles, smc_beta=beta,
+         smc_log_evidence_increment=logz, smc_stage_seconds=stage_s,
+         smc_launches=smc_launches, resample_same_ancestors=same_ancestors)
+    check(np.isfinite(qs).all(), "non-finite sharded NUTS draws")
+    check(rhat.max() < 1.05, f"sharded NUTS split-R-hat {rhat.max():.4f}")
+    check(info["divergences"] <= 0.01 * transitions,
+          f"{info['divergences']} divergences in {transitions} transitions")
+    check(np.all(eps == eps[0]), f"step sizes not pooled: {eps}")
+    check(nuts_launches["rbf_kernel_matrix"] >= sum(calls)
+          and nuts_launches["rbf_nlml_adjoint"] >= sum(calls),
+          f"K or A missed a chain evaluation: {nuts_launches}")
+    check(bool(torch.isfinite(parts).all()) and np.isfinite(logz)
+          and 0.0 < beta <= 1.0, f"bad SMC stage: β {beta}, logZ {logz}")
+    check(same_ancestors, "the distributed resample picked other ancestors")
+    return {k: nuts_launches[k] + smc_launches[k] for k in nuts_launches}
+
+
+def _trace_stats(events):
+    """Kernel events of a Chrome trace, its runtime launches, each
+    kernel's start less its launch's and each launch's start less that of
+    the operator that made it (µs)."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "")
+                and "correlation" in e.get("args", {})}
+    offsets = [k["ts"] - launches[k["args"]["correlation"]]["ts"]
+               for k in kernels
+               if k.get("args", {}).get("correlation") in launches]
+    # A launch's time is on the card's profiling clock, its operator's on
+    # the host profiler's: a launch before the operator that made it shows
+    # the two clocks apart.
+    ops = {e["args"]["External id"]: e for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    gaps = [l["ts"] - ops[l["args"]["External id"]]["ts"]
+            for l in launches.values()
+            if l["args"].get("External id") in ops]
+    out = dict(kernel_events=len(kernels), launch_events=len(launches),
+               kernel_names=sorted({k.get("name", "") for k in kernels}))
+    for key, xs in (("kernel_minus_launch_us", offsets),
+                    ("launch_minus_operator_us", gaps)):
+        if xs:
+            out[key] = dict(min=float(np.min(xs)),
+                            median=float(np.median(xs)),
+                            max=float(np.max(xs)))
+    return out
+
+
+def _trace_sharded_nlml(mesh, scratch, device="cuda"):
+    """``profiling.trace`` around one sharded NLML evaluation (N=2,048,
+    Q=8) after a warm one: (the trace's ``_trace_stats``, whether it names
+    kernel K, what ``profiling.trace`` reported of lost kernels: its
+    warning or error, or None)."""
+    import warnings
+    from edrgp_tpu_torch import profiling
+    from edrgp_tpu_torch.models.state import ExactGPModel
+    from edrgp_tpu_torch.ops.kernels import RBF
+    from edrgp_tpu_torch.parallel import sharded_nlml_value_and_grad
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2048, 8))
+    m = ExactGPModel(X, np.sin(X[:, 0]), RBF(8, ARD=True), device=device)
+    sharded_nlml_value_and_grad(m, mesh, m._X, m._y)          # warm
+    reported = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            with profiling.trace(scratch):
+                sharded_nlml_value_and_grad(m, mesh, m._X, m._y)
+        except RuntimeError as e:
+            reported = str(e)
+    reported = reported or next((str(w.message) for w in caught
+                                 if "kernel launches but" in str(w.message)),
+                                None)
+    with open(os.path.join(scratch, "trace.json")) as f:
+        trace = f.read()
+    stats = _trace_stats(json.loads(trace).get("traceEvents", []))
+    stats["trace_mb"] = len(trace) / 1e6
+    names_k = any("kmat_kernel" in k for k in stats["kernel_names"])
+    return stats, names_k, reported
+
+
+def phase_trace(device="cuda"):
+    """``profiling.trace`` of one sharded NLML evaluation (N=2,048, Q=8)
+    in a one-rank NCCL group joined for it, right after the build: the
+    Chrome trace must name kernel K.  It runs before the sampler phases,
+    after which PyTorch's profiler loses kernel records (ROADMAP Queue 3;
+    aux checks ``profiling.trace``'s report of that at the end)."""
+    import shutil
+    import torch.distributed as dist
+    from edrgp_tpu_torch.parallel import initialize, make_mesh
+    initialize(device=device)
+    scratch = os.path.join(ROOT, "build", f"trace-{os.getpid()}")
+    try:
+        stats, names_k, reported = _trace_sharded_nlml(
+            make_mesh(("data",)), scratch, device)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+        dist.destroy_process_group()
+    kernels = stats.pop("kernel_names")
+    emit(phase="trace", trace_names_kernel_K=names_k, trace=stats,
+         lost_kernels_report=reported, trace_kernel_names=len(kernels),
+         trace_kernels_sample=[k[:80] for k in kernels[:12]])
+    check(names_k, f"the profiler trace does not name kernel K: "
+          f"{len(kernels)} kernel names, {kernels[:12]}")
+
+
+def phase_aux(mesh, theta_hat, device="cuda", N=1024, Q=4, chains=16):
+    """A checkpoint of a NUTS chain batch's ``HMCState`` and
+    ``AdaptState`` (config 4's target, chains around nuts_gp's MAP) on the
+    card round-trips with the same bits, dtype and device;
+    ``StallWatchdog`` fires on a 2-second stall past its 1-second deadline
+    and stays quiet while beaten; ``profiling.trace`` of one sharded NLML
+    evaluation (N=2,048, Q=8), taken last, after the sampler phases, either
+    holds a kernel for every launch and names kernel K, or reports the
+    kernels the profiler lost (a warning, or an error when none is left):
+    it never hands back a partial trace without saying so."""
+    import shutil
+    import torch
+    from edrgp_tpu_torch import checkpoint
+    from edrgp_tpu_torch.inference import hmc
+    from edrgp_tpu_torch.parallel import StallWatchdog
+    _, logprob, _, _ = _gp_target(device, N, Q)
+    q0 = theta_hat + 0.05 * torch.as_tensor(
+        np.random.default_rng(1).normal(size=(chains, theta_hat.shape[0])),
+        dtype=theta_hat.dtype, device=theta_hat.device)
+    state = hmc.init_state(logprob, q0)
+    adapt = hmc.window_adaptation_update(
+        hmc.window_adaptation_init(q0, 0.1), state.q,
+        torch.full((chains,), 0.7, dtype=q0.dtype, device=q0.device))
+    tree = {"state": state, "adapt": adapt, "step": 5}
+    scratch = os.path.join(ROOT, "build", f"aux-{os.getpid()}")
+    try:
+        checkpoint.save_checkpoint(scratch, tree, 5)
+        like = {"state": hmc.HMCState(*(torch.zeros_like(t) for t in state)),
+                "adapt": hmc.AdaptState(*(torch.zeros_like(t)
+                                          for t in adapt)), "step": 0}
+        back, step = checkpoint.load_checkpoint(scratch, like)
+        pairs = list(zip((*state, *adapt), (*back["state"], *back["adapt"])))
+        roundtrip = (step == 5 and back["step"] == 5 and all(
+            b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+            for a, b in pairs))
+
+        fired = StallWatchdog(timeout_s=1.0, poll_s=0.1,
+                              on_stall=lambda *_: None)
+        with fired as dog:
+            dog.beat(0)
+            time.sleep(2.0)
+        quiet = StallWatchdog(timeout_s=1.0, poll_s=0.1)
+        with quiet as dog:
+            for i in range(20):
+                time.sleep(0.1)
+                dog.beat(i)
+
+        stats, names_k, reported = _trace_sharded_nlml(mesh, scratch, device)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    kernels = stats.pop("kernel_names")
+    complete = stats["kernel_events"] >= stats["launch_events"]
+    emit(phase="aux", checkpoint_roundtrip_bitwise=roundtrip,
+         checkpoint_leaves=len(pairs) + 1, watchdog_fired_on_stall=fired.fired,
+         watchdog_quiet_while_beaten=not quiet.fired,
+         trace_names_kernel_K=names_k, trace_complete=complete,
+         trace=stats, lost_kernels_report=reported,
+         trace_kernel_names=len(kernels))
+    check(roundtrip, "the NUTS state's checkpoint did not round-trip")
+    check(fired.fired and not quiet.fired,
+          f"watchdog: fired {fired.fired} on a stall, {quiet.fired} beaten")
+    check((complete and names_k) or reported is not None,
+          f"profiling.trace handed back a trace without kernel K or with "
+          f"{stats['kernel_events']} kernels for {stats['launch_events']} "
+          "launches, and did not say so")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2002,24 +2558,40 @@ def main():
 
     smi = phase_device()
     phase_build()
+    phase_trace()
     summary = phase_kernels()
     phase_nlml()
     phase_small_reference()
-    launches = phase_main_path()
+    launches, main_comps = phase_main_path()
     phase_sgpr()
     sparse_launches = phase_sparse_edr()
     phase_svgp_reference()
     stream_launches = phase_svgp_stream()
-    svgp_edr_launches = phase_svgp_edr()
-    phase_cls_reference()
-    cls_ep_launches = phase_cls_ep_edr()
-    cls_sparse_launches = phase_cls_sparse_edr()
-    phase_het_reference()
-    het_launches = phase_het_edr()
-    phase_sampler_reference()
-    nuts_launches, theta_hat, nuts_qs = phase_nuts_gp()
-    smc_launches = phase_smc_gp(theta_hat, nuts_qs)
-    bayes_launches = phase_bayes_edr()
+    svgp_edr_launches, handoff = phase_svgp_edr()
+    try:
+        phase_cls_reference()
+        cls_ep_launches = phase_cls_ep_edr()
+        cls_sparse_launches = phase_cls_sparse_edr()
+        phase_het_reference()
+        het_launches = phase_het_edr()
+        phase_sampler_reference()
+        nuts_launches, theta_hat, nuts_qs = phase_nuts_gp()
+        smc_launches = phase_smc_gp(theta_hat, nuts_qs)
+        bayes_launches = phase_bayes_edr()
+        mesh = phase_distributed()
+        try:
+            sharded_nlml_launches = phase_sharded_nlml(mesh)
+            sharded_edr_launches = phase_sharded_edr(mesh, main_comps,
+                                                     handoff)
+            sharded_svgp_launches = phase_sharded_svgp(mesh)
+            sharded_sampler_launches = phase_sharded_samplers(theta_hat)
+            phase_aux(mesh, theta_hat)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    finally:
+        if os.path.exists(handoff[0]):
+            os.unlink(handoff[0])
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -2033,7 +2605,12 @@ def main():
                               "het_edr": het_launches[name],
                               "nuts_gp": nuts_launches[name],
                               "smc_gp": smc_launches[name],
-                              "bayes_edr": bayes_launches[name]},
+                              "bayes_edr": bayes_launches[name],
+                              "sharded_nlml": sharded_nlml_launches[name],
+                              "sharded_edr": sharded_edr_launches[name],
+                              "sharded_svgp": sharded_svgp_launches[name],
+                              "sharded_samplers":
+                                  sharded_sampler_launches[name]},
          **summary[name]}
         for name, where in KERNELS.items()]}), flush=True)
     print(smi, flush=True)

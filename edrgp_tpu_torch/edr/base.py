@@ -76,13 +76,20 @@ class BaseEDR(BaseEstimator, TransformerMixin):
         if self.num_iter == 0:
             self._first_gradients_ = grad
         self.transformer_ = clone(self.transformer)
-        self.transformer_.fit(grad)
+        self._fit_dr(self.transformer_, grad)
         self._check_transformer(self.transformer_)
         comps = deepcopy(self.transformer_.components_)[:self.n_components_, :]
         # New axes are expressed in the current (projected) space.
         self.components_ = (comps if self.components_ is None
                             else comps @ self.components_)
         return self
+
+    def _fit_dr(self, transformer, grad):
+        """Fit the cloned DR transformer on the gradient matrix.
+        ``EffectiveDimensionalityReduction`` overrides it to feed the
+        distributed Gram instead, when one was summed."""
+        transformer.fit(grad)
+        return transformer
 
     def _last_fit(self, X, y, **opt_kws):
         """Refit in the reduced subspace; record gradient/variance summaries."""
@@ -207,7 +214,7 @@ class IterativeEDR(BaseEDR):
         if self.num_iter == 0:
             self._first_gradients_ = grad
         self.transformer_ = clone(self.transformer)
-        self.transformer_.fit(grad)
+        self._fit_dr(self.transformer_, grad)
         self._check_transformer(self.transformer_)
         comps = deepcopy(self.transformer_.components_)
         n_keep = self._select_n_components(grad, comps)

@@ -1,9 +1,7 @@
 """User-facing EDR class with normalization and linear preprocessing.
 
 The port of :class:`edrgp_tpu.edr.edr.EffectiveDimensionalityReduction`
-without scikit-learn.  The sharded gradient extraction (``gradient_mesh``)
-is not ported yet; the argument is kept for the same signature and raises
-when given.
+without scikit-learn.
 """
 
 from __future__ import annotations
@@ -32,7 +30,13 @@ class EffectiveDimensionalityReduction(_BlockFitMixin, IterativeEDR):
         projector.  ``n_components`` as a list with ``blocks=None`` splits
         the features into that many contiguous near-equal blocks.  Block
         mode is single-pass (``step`` must be None).
-    gradient_mesh : not ported yet; must be None.
+    gradient_mesh : optional ``torch.distributed`` device mesh (see
+        :mod:`edrgp_tpu_torch.parallel.mesh`) — run the fit-time gradient
+        extraction data-parallel over its ``"data"`` dimension and feed a
+        Gram-capable DR transformer the summed [Q, Q] Gram instead of the
+        [N, Q] gradients (:mod:`edrgp_tpu_torch.parallel.edr_sharded`).
+        Every rank fits the same EDR.  Estimators whose fitted model has
+        no sharded gradient basis take the single-device path.
     """
 
     def __init__(self, estimator=None, dr_transformer=None, n_components=None,
@@ -91,8 +95,6 @@ class EffectiveDimensionalityReduction(_BlockFitMixin, IterativeEDR):
 
     # ------------------------------------------------------------------ fit
     def fit(self, X, y=None, **opt_kws):
-        if self.gradient_mesh is not None:
-            raise NotImplementedError("gradient_mesh is not ported yet")
         self.fitted = False
         X = self._preprocessing_fit(X)
         super().fit(X, y, **opt_kws)
@@ -144,18 +146,49 @@ class EffectiveDimensionalityReduction(_BlockFitMixin, IterativeEDR):
     def _get_estimator_gradients(self, X, preprocessing_transform=False):
         """Gradients mapped back to the (preprocessed) input space: the
         first-iteration gradients pass through the preprocessor, so the
-        cached ``_first_gradients_`` live in normalized-feature space."""
+        cached ``_first_gradients_`` live in normalized-feature space.
+
+        With ``gradient_mesh``, fit-time extraction runs the sharded path
+        and its summed Gram is staged for the DR transformer (see
+        :meth:`_fit_dr`), mapped through the preprocessor with the
+        gradients (grad' = G·P, so gram' = Pᵀ·gram·P)."""
         if preprocessing_transform:
             X = self._preprocessing_transform(X)
         check_is_fitted(self, "estimator_")
-        grad = self.estimator_.predict_gradient(X)
+        gram = None
+        if (self.gradient_mesh is not None and not preprocessing_transform
+                and getattr(self.estimator_, "supports_sharded_gradients",
+                            lambda: False)()):
+            grad, gram = self.estimator_.predict_gradient_sharded(
+                X, self.gradient_mesh)
+        else:
+            grad = self.estimator_.predict_gradient(X)
         if (self.preprocessor is not None and self.num_iter == 0
                 and not preprocessing_transform):
             check_is_fitted(self, "preprocessor_")
             grad = grad @ self._preprocessing_
+            if gram is not None:
+                gram = self._preprocessing_.T @ gram @ self._preprocessing_
         if preprocessing_transform:
             grad = grad @ self.components_
+        if gram is not None:
+            self._pending_gram_ = gram
+            self._pending_gram_key_ = grad
         return grad
+
+    def _fit_dr(self, transformer, grad):
+        """Feed the distributed Gram to a Gram-capable transformer when
+        the gradient matrix being fitted is the one the sharded path just
+        extracted: ``fit_gram`` takes the [Q, Q] sum (the same subspace as
+        ``fit(grad)``).  Any other transformer or gradient matrix takes the
+        plain ``fit``."""
+        gram = getattr(self, "_pending_gram_", None)
+        if (gram is not None
+                and grad is getattr(self, "_pending_gram_key_", None)
+                and hasattr(transformer, "fit_gram")):
+            transformer.fit_gram(gram, n_rows=grad.shape[0])
+            return transformer
+        return super()._fit_dr(transformer, grad)
 
     @property
     def feature_importances_(self):

@@ -22,8 +22,8 @@ import torch
 
 __all__ = ["HMCState", "AdaptState", "init_state", "value_and_grad",
            "hmc_step", "find_reasonable_epsilon", "window_adaptation_init",
-           "window_adaptation_update", "curvature_inv_mass", "run_hmc",
-           "run_hmc_pytree", "make_generator"]
+           "window_adaptation_update", "pooled_mean", "curvature_inv_mass",
+           "run_hmc", "run_hmc_pytree", "make_generator"]
 
 
 class HMCState(NamedTuple):
@@ -226,18 +226,34 @@ def curvature_inv_mass(logprob_fn: Callable, q: torch.Tensor,
     return var.clamp(1e-6, 1e6)
 
 
+def pooled_mean(x: torch.Tensor, pool_group=None) -> torch.Tensor:
+    """The mean of ``x`` [C] over its chains and, with ``pool_group`` (a
+    ``torch.distributed`` process group whose ranks hold C chains each),
+    over every rank's chains, the same bits on every rank: the JAX
+    package's ``pmean`` over the (vmap, mesh) axes."""
+    if pool_group is None:
+        return x.mean()
+    import torch.distributed as dist
+    from ..parallel.distributed import ordered_sum
+    return (ordered_sum(x.sum(), pool_group)
+            / (x.shape[0] * dist.get_world_size(pool_group)))
+
+
 def window_adaptation_update(adapt: AdaptState, q: torch.Tensor,
                              accept_stat: torch.Tensor,
                              target: float = 0.8,
-                             pool_eps: bool = False) -> AdaptState:
+                             pool_eps: bool = False,
+                             pool_group=None) -> AdaptState:
     """Nesterov dual averaging on ε + Welford update of the diagonal mass.
 
     With ``pool_eps`` the acceptance statistic is the mean over the batch's
-    chains, so every chain shares one ε (the JAX package's ``pmean`` over
-    ``axis_name``)."""
+    chains, and over every rank's chains of ``pool_group`` when it is
+    given (:func:`pooled_mean`), so every chain shares one ε (the JAX
+    package's ``pmean`` over ``axis_name``).  Without a group nothing
+    leaves this process."""
     a = accept_stat
     if pool_eps:
-        a = a.mean().expand(a.shape)
+        a = pooled_mean(a, pool_group).expand(a.shape)
     t = adapt.count + 1.0
     kappa, gamma, t0 = 0.75, 0.05, 10.0
     h_avg = (1.0 - 1.0 / (t + t0)) * adapt.h_avg + (target - a) / (t + t0)

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from .hmc import (HMCState, _finalize_mass, _kinetic, _momentum, init_state,
-                  find_reasonable_epsilon, make_generator, ravel_chains,
-                  value_and_grad, window_adaptation_init,
+                  find_reasonable_epsilon, make_generator, pooled_mean,
+                  ravel_chains, value_and_grad, window_adaptation_init,
                   window_adaptation_update)
 
 __all__ = ["nuts_step", "run_nuts", "run_nuts_pytree", "run_nuts_segmented"]
@@ -267,7 +267,8 @@ def run_nuts_segmented(logprob_fn: Callable, q0: torch.Tensor, seed: int = 0,
                        segment_len: int = 32, pool_eps: bool = False,
                        inv_mass0=None, chain_chunk: int | None = None,
                        reuse_adaptation: tuple | None = None,
-                       on_segment: Callable | None = None):
+                       on_segment: Callable | None = None,
+                       pool_group=None):
     """Multi-chain NUTS from the chain starts q0 [C, D], in segments.
 
     The JAX package segments the run into bounded device programs; here
@@ -282,6 +283,11 @@ def run_nuts_segmented(logprob_fn: Callable, q0: torch.Tensor, seed: int = 0,
     holds: groups of ``chain_chunk`` chains advance in turn at every
     transition, and pooled ε pools within each group; with
     ``chain_chunk ≥ C`` the run is the unchunked one, bit for bit.
+    ``pool_group`` (a ``torch.distributed`` process group whose ranks each
+    run this function on as many chains) pools ε over every rank's chains
+    too (:func:`~edrgp_tpu_torch.inference.hmc.pooled_mean`): the JAX
+    package's ``axis_name``.  Every rank then runs the same transitions in
+    the same order.
     ``reuse_adaptation=(eps, inv_mass)`` samples with a tuned kernel from
     an earlier run on the same target and skips warmup.  Returns (samples
     [C, num_samples, D] numpy, info) with the accept rate, divergences,
@@ -316,7 +322,8 @@ def run_nuts_segmented(logprob_fn: Callable, q0: torch.Tensor, seed: int = 0,
                                                   inv_mass=im)
                           for s in states])
         if pool_eps:
-            eps0 = torch.exp(torch.log(eps0).mean()).expand(C)
+            eps0 = torch.exp(pooled_mean(torch.log(eps0),
+                                         pool_group)).expand(C)
         adapts = [window_adaptation_init(q0[g], eps0[g], inv_mass0=im)
                   for g in groups]
         half = num_warmup // 2
@@ -332,7 +339,7 @@ def run_nuts_segmented(logprob_fn: Callable, q0: torch.Tensor, seed: int = 0,
                             a.inv_mass, max_depth)
                         adapts[i] = window_adaptation_update(
                             a, states[i].q, info["accept_stat"],
-                            target_accept, pool_eps)
+                            target_accept, pool_eps, pool_group)
                 states[0].q[:1].cpu()       # wait for the card
                 done += seg
                 if on_segment is not None:

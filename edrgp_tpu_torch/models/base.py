@@ -30,7 +30,9 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
         (default "RBF").
     kernel_options : dict or list of dict, optional — per-kernel options,
         e.g. ``{"ARD": True}``.
-    method : {'optimize', 'optimize_restarts'} — fit method on the model.
+    method : {'optimize', 'optimize_restarts', 'optimize_sharded'} — fit
+        method on the model (``optimize_sharded``: the exact GP only, with
+        ``fit(X, y, mesh=...)``).
     device : torch device the model lives on (None: the card; "cpu" only
         when asked for).
     """
@@ -86,6 +88,23 @@ class _BaseGP(BaseEstimator, metaclass=ABCMeta):
     def predict_gradient(self, X):
         X = self._check_predict(X)
         return self.estimator_.predictive_gradients(X)[0][:, :, 0]
+
+    def supports_sharded_gradients(self) -> bool:
+        """True when the fitted model can run the data-parallel gradient
+        extraction (:mod:`edrgp_tpu_torch.parallel.edr_sharded`)."""
+        from ..parallel.edr_sharded import supports_sharded_gradients
+        return (hasattr(self, "estimator_")
+                and supports_sharded_gradients(self.estimator_))
+
+    def predict_gradient_sharded(self, X, mesh, axis="data", chunk=None):
+        """Predictive gradients with the rows split over ``mesh``'s
+        dimension ``axis``, and their summed Gram: ``(grad [N, Q], gram
+        [Q, Q])`` with ``gram == grad.T @ grad``, the multi-device EDR
+        extraction.  Every rank of ``axis`` calls it with the same X."""
+        X = self._check_predict(X)
+        from ..parallel.edr_sharded import model_gradient_gram
+        return model_gradient_gram(self.estimator_, X, mesh, axis=axis,
+                                   chunk=chunk)
 
     def save(self, model_path):
         if not model_path.endswith(".pickle"):

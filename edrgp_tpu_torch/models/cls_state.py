@@ -161,7 +161,7 @@ class SparseVGPClassificationModel(_BaseClsModel):
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
         self._setup_cls(X, y, kernel, mean_function, dtype, device)
-        self.Z = nn.Parameter(torch.as_tensor(
+        self.Z = nn.Parameter(torch.tensor(       # a copy, see SGPRModel
             _inducing_init(X, Z, num_inducing, seed), dtype=dtype,
             device=device))
         self._variational(self.Z.shape[0])
@@ -229,7 +229,7 @@ class SparseEPClassificationModel(_BaseClsModel):
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
         self._setup_cls(X, y, kernel, mean_function, dtype, device)
-        self.Z = nn.Parameter(torch.as_tensor(
+        self.Z = nn.Parameter(torch.tensor(       # a copy, see SGPRModel
             _inducing_init(X, Z, num_inducing, seed), dtype=dtype,
             device=device))
 

@@ -363,6 +363,32 @@ class ExactGPModel(_BaseModel):
     def _objective_fn(self):
         return lambda: _exact.nlml(self, self._X, self._y)
 
+    # --- distributed fitting (kernel-block parallel) ------------------------
+    def optimize_sharded(self, mesh=None, axis: str = "data",
+                         messages: bool = False, max_iters: int = 1000,
+                         tol: float | None = None, **_ignored):
+        """ML-II with the N×N system row-slab-sharded over ``mesh``'s
+        dimension ``axis``: L-BFGS on the distributed NLML of
+        :mod:`edrgp_tpu_torch.parallel.exact_sharded`, whose value and
+        gradient have the same bits on every rank, so every rank takes the
+        same steps.  A rank's working set is O(N²/p).  Every rank calls it
+        with the same model; ``mesh=None`` builds a 1-D mesh over the
+        ranks of the default group.  N must be divisible by the axis size.
+        Reachable from the estimator as
+        ``GaussianProcessRegressor(method="optimize_sharded")``."""
+        from ..parallel.exact_sharded import (make_sharded_nlml_objective,
+                                              shard_rows)
+        from ..parallel.mesh import axis_size, make_mesh
+        if mesh is None:
+            mesh = make_mesh((axis,))
+        X_local, y_local = shard_rows(mesh, axis, self._X, self._y)
+        fun = make_sharded_nlml_objective(self, mesh, axis)
+        tol = self._default_tol() if tol is None else tol
+        res = minimize(lambda: fun(X_local, y_local), list(self.parameters()),
+                       max_iters=int(max_iters), tol=float(tol))
+        return self._finish(res, f"sharded({axis_size(mesh, axis)}x "
+                            f"{axis}) ", messages)
+
     # --- posterior --------------------------------------------------------
     def _posterior(self):
         if self._cache is None:
@@ -385,6 +411,37 @@ class ExactGPModel(_BaseModel):
                                                  Xnew, batch),
                 _exact.predict_var_grad_batched(self, self._X, cache, Xnew,
                                                 batch))
+
+    def _gradient_basis(self):
+        """(kernel, C, w) with dμ/dx* = ∇ₓ Σᵢ wᵢ k(x, Cᵢ) on the
+        normalized-y scale: (X, α), the basis the data-parallel EDR shards
+        over (:mod:`edrgp_tpu_torch.parallel.edr_sharded`)."""
+        return self.kernel, self._X, self._posterior()[1]
+
+    def predict_full_cov(self, Xnew):
+        """Posterior mean [M] and full covariance [M, M] of the latent
+        function, as numpy in the original y scale."""
+        Xnew = self._as_input(Xnew)
+        mean, cov = _exact.predict_full_cov(self, self._X, self._posterior(),
+                                            Xnew)
+        return (self.normalizer.unnorm_mean(mean.cpu().numpy())
+                + self._mean_shift_at(Xnew.cpu().numpy()),
+                self.normalizer.unnorm_var(cov.cpu().numpy()))
+
+    def posterior_samples_f(self, Xnew, size: int = 10, seed: int = 0,
+                            generator: torch.Generator | None = None):
+        """Joint samples of the latent function at Xnew: [size, M] numpy
+        (GPy's ``posterior_samples_f``), the normal draws from
+        ``generator`` (default: one on the model's device seeded with
+        ``seed``)."""
+        Xnew = self._as_input(Xnew)
+        if generator is None:
+            generator = torch.Generator(device=self._X.device).manual_seed(
+                int(seed))
+        samples = _exact.posterior_samples_f(self, self._X, self._posterior(),
+                                             Xnew, size, generator)
+        return (self.normalizer.unnorm_mean(samples.cpu().numpy())
+                + self._mean_shift_at(Xnew.cpu().numpy())[None, :])
 
 
 class SGPRModel(_BaseModel):
@@ -420,8 +477,10 @@ class SGPRModel(_BaseModel):
             m = min(int(num_inducing), X.shape[0])
             Z = np.asarray(X)[rng.permutation(X.shape[0])[:m]]
         self._setup(X, y_n, kernel, noise_var, dtype, device)
-        self.Z = nn.Parameter(torch.as_tensor(np.asarray(Z), dtype=dtype,
-                                              device=device))
+        # A copy: the optimizer updates Z in place, and an array given as
+        # Z (a slice of X, say) must not change under the caller.
+        self.Z = nn.Parameter(torch.tensor(np.asarray(Z), dtype=dtype,
+                                           device=device))
         self._set_x_variance(X_variance)
 
     def _set_x_variance(self, X_variance) -> None:
@@ -469,6 +528,10 @@ class SGPRModel(_BaseModel):
         cache = self._posterior()
         return (_sgpr.predict_mean_grad(self, cache[2], Xnew, batch),
                 _sgpr.predict_var_grad(self, cache, Xnew, batch))
+
+    def _gradient_basis(self):
+        """(kernel, Z, β): see ``ExactGPModel._gradient_basis``."""
+        return self.kernel, self.Z, self._posterior()[2]
 
 
 _MODEL_CLASSES = {"ExactGPModel": ExactGPModel, "SGPRModel": SGPRModel}

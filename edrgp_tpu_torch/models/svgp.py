@@ -90,8 +90,10 @@ class SVGPModel(_BaseModel):
             Z = np.asarray(X)[rng.permutation(X.shape[0])[:m]]
         self._setup(X, self.normalizer.normalize(y), kernel, noise_var,
                     dtype, device)
-        self.Z = nn.Parameter(torch.as_tensor(np.asarray(Z), dtype=dtype,
-                                              device=device))
+        # A copy: the optimizer updates Z in place, and an array given as
+        # Z (a slice of X, say) must not change under the caller.
+        self.Z = nn.Parameter(torch.tensor(np.asarray(Z), dtype=dtype,
+                                           device=device))
         self.qstate = _svgp.init_svgp_state(self.Z.shape[0], dtype, device)
         self._seed = seed
         self.elbo_trace_ = None

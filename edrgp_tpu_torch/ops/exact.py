@@ -32,7 +32,8 @@ from .linalg import (cho_solve, jitter_ladder, logdet_and_quad,
                      safe_cholesky, tri_solve)
 
 __all__ = [
-    "nlml", "posterior", "predict", "predict_mean_grad", "predict_var_grad",
+    "nlml", "posterior", "predict", "predict_full_cov", "posterior_samples_f",
+    "predict_mean_grad", "predict_var_grad",
     "predict_mean_grad_batched", "predict_var_grad_batched", "map_batched",
     "grad_batch_size", "weighted_kernel_grad", "grad_rows",
     "noise_variance", "noisy_K", "RBFKy", "theta_layout", "flatten_theta",
@@ -165,6 +166,32 @@ def predict(gp, X, cache, Xnew, include_likelihood: bool = True):
     if include_likelihood:
         var = var + noise_variance(gp)
     return mean, var
+
+
+@torch.no_grad()
+def predict_full_cov(gp, X, cache, Xnew):
+    """Posterior mean [M] and FULL covariance [M, M] at Xnew (latent, no
+    noise); the cross-kernels through kernel K when it serves the
+    kernel."""
+    L, alpha = cache
+    Ks = _cross_K(gp.kernel, X, Xnew)
+    mean = Ks.T @ alpha
+    v = tri_solve(L, Ks, lower=True)
+    cov = _cross_K(gp.kernel, Xnew, Xnew) - v.T @ v
+    return mean, cov
+
+
+@torch.no_grad()
+def posterior_samples_f(gp, X, cache, Xnew, size: int = 10,
+                        generator: torch.Generator | None = None):
+    """``size`` joint samples of the latent function at Xnew: [size, M],
+    mean + z·Lcᵀ with z ~ N(0, I) drawn from ``generator`` and Lc the
+    covariance's Cholesky factor (the jitter ladder's)."""
+    mean, cov = predict_full_cov(gp, X, cache, Xnew)
+    Lc = safe_cholesky(cov)
+    z = torch.randn((size, Xnew.shape[0]), generator=generator,
+                    dtype=mean.dtype, device=mean.device)
+    return mean[None, :] + z @ Lc.T
 
 
 def map_batched(fn, Xnew: torch.Tensor, batch: int):

@@ -34,7 +34,8 @@ from .exact import _cross_K, grad_batch_size, grad_rows, noise_variance
 from .linalg import safe_cholesky, tri_solve
 
 __all__ = ["SVGPState", "init_svgp_state", "q_from_natural", "svgp_elbo",
-           "elbo_terms", "natural_gradient_update", "svgp_predict",
+           "elbo_terms", "natural_gradient_update", "natural_gradient_stats",
+           "natural_gradient_step", "svgp_predict",
            "svgp_predict_mean_grad", "svgp_predict_mean_grad_batched"]
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -117,6 +118,32 @@ def elbo_terms(gp, m, S, Xb, yb):
 
 
 @torch.no_grad()
+def natural_gradient_stats(gp, Xb, yb):
+    """(Kuu⁻¹, t₁ = Kuu⁻¹Kub·y_b, t₂ = Kuu⁻¹Kub·KbuKuu⁻¹) of a minibatch:
+    t₁ and t₂ are sums over the batch's rows, so a batch split over ranks
+    sums them (:func:`edrgp_tpu_torch.parallel.make_sharded_svgp_step`).
+    Kuu⁻¹ is formed explicitly, as the JAX package forms it."""
+    Z = gp.Z
+    Luu = safe_cholesky(gp.kernel.K(Z, Z))
+    A = tri_solve(Luu, gp.kernel.K(Z, Xb), lower=True)            # [M, B]
+    A = tri_solve(Luu, A, lower=True, trans=True)                 # Kuu⁻¹ Kub
+    Minv = tri_solve(Luu, _eye_like(Luu), lower=True)
+    return Minv.T @ Minv, A @ yb, A @ A.T
+
+
+@torch.no_grad()
+def natural_gradient_step(gp, state: SVGPState, Kuu_inv, t1, t2, scale,
+                          rho) -> SVGPState:
+    """θ ← (1−ρ)θ + ρθ̂ from the batch statistics of
+    :func:`natural_gradient_stats`, ``scale`` = N/B."""
+    sigma2 = noise_variance(gp)
+    t1_hat = (scale / sigma2) * t1
+    t2_hat = -0.5 * (Kuu_inv + (scale / sigma2) * t2)
+    return SVGPState(
+        theta1=(1.0 - rho) * state.theta1 + rho * t1_hat,
+        theta2=(1.0 - rho) * state.theta2 + rho * t2_hat)
+
+
 def natural_gradient_update(gp, state: SVGPState, Xb, yb, n_total,
                             rho) -> SVGPState:
     """One stochastic natural-gradient step on q(u) (Hensman 2013, eq. 12).
@@ -125,22 +152,11 @@ def natural_gradient_update(gp, state: SVGPState, Xb, yb, n_total,
     optimum are closed-form on the batch:
       θ̂₁ = (N/B)/σ² · Kuu⁻¹ Kub y_b
       θ̂₂ = −½ (Kuu⁻¹ + (N/B)/σ² · Kuu⁻¹ Kub Kbu Kuu⁻¹)
-    and the step is θ ← (1−ρ)θ + ρθ̂ (stays in the valid cone).  Kuu⁻¹ is
-    formed explicitly, as the JAX package forms it.
+    and the step is θ ← (1−ρ)θ + ρθ̂ (stays in the valid cone).
     """
-    sigma2 = noise_variance(gp)
-    Z = gp.Z
-    Luu = safe_cholesky(gp.kernel.K(Z, Z))
-    A = tri_solve(Luu, gp.kernel.K(Z, Xb), lower=True)            # [M, B]
-    A = tri_solve(Luu, A, lower=True, trans=True)                 # Kuu⁻¹ Kub
-    scale = n_total / Xb.shape[0]
-    t1_hat = (scale / sigma2) * (A @ yb)
-    Minv = tri_solve(Luu, _eye_like(Luu), lower=True)
-    Kuu_inv = Minv.T @ Minv
-    t2_hat = -0.5 * (Kuu_inv + (scale / sigma2) * (A @ A.T))
-    return SVGPState(
-        theta1=(1.0 - rho) * state.theta1 + rho * t1_hat,
-        theta2=(1.0 - rho) * state.theta2 + rho * t2_hat)
+    Kuu_inv, t1, t2 = natural_gradient_stats(gp, Xb, yb)
+    return natural_gradient_step(gp, state, Kuu_inv, t1, t2,
+                                 n_total / Xb.shape[0], rho)
 
 
 @torch.no_grad()

@@ -6,7 +6,9 @@ G and K at the classifier EDR's shapes, the heteroscedastic NLML's per-row
 noise through kernels K and A, each classifier against its CPU float64
 model, and the samplers' chain batches: K and A over a leading chain axis,
 a chain whose factorization fails, ``nlml_chains`` and the Bayesian
-regressor's predictions against CPU float64.
+regressor's predictions against CPU float64; and, in a one-rank NCCL group,
+the sharded NLML against the single-device one and the sharded gradient
+extraction against the unsharded G.
 
 Every test needs a card and skips without one.  The file imports no JAX, so
 on the GPU machine (which has no JAX) it runs without the suite's
@@ -648,3 +650,63 @@ def test_cuda_bayesian_predictions_match_cpu_float64(card):
     for a, b in zip(out[0][:4], out[1][:4]):
         assert np.abs(a - b).max() < 1e-4 * np.abs(b).max()
     assert out[0][4] >= 8 and out[0][5] == 8
+
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A one-rank NCCL group on the card, torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card only")
+    import torch.distributed as dist
+    from edrgp_tpu_torch.parallel import initialize, make_mesh
+    initialize(device="cuda")
+    try:
+        yield make_mesh(("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_problem(N, Q, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, Q))
+    return X, np.sin(X @ rng.normal(size=Q)) + 0.1 * rng.normal(size=N)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_nlml_matches_single_device(nccl_group):
+    """The sharded NLML on a one-rank NCCL group at N=2,048 (K for the slab,
+    the closed-form slab backward, NCCL's collectives) against the
+    single-device NLML on the card: value 1e-4 relative, each gradient 1e-3
+    of its largest entry; one K launch an evaluation, the same bits
+    twice."""
+    from edrgp_tpu_torch.parallel import sharded_nlml_value_and_grad
+    X, y = _sharded_problem(2048, 8)
+    m = ExactGPModel(X, y, RBF(8, ARD=True), noise_var=0.1, device="cuda")
+    rbf.reset_launches()
+    value, grads = sharded_nlml_value_and_grad(m, nccl_group, m._X, m._y)
+    assert rbf.LAUNCHES["rbf_kernel_matrix"] == 1
+    again = sharded_nlml_value_and_grad(m, nccl_group, m._X, m._y)
+    assert torch.equal(again[0], value)
+    m.zero_grad()
+    ref = exact.nlml(m, m._X, m._y)
+    ref.backward()
+    ref = float(ref.detach())
+    assert abs(float(value) - ref) / abs(ref) < 1e-4
+    for name, p in m.named_parameters():
+        assert _rel(grads[name], p.grad) < 1e-3, name
+
+
+@pytest.mark.cuda
+def test_cuda_model_gradient_gram_is_the_unsharded_G(nccl_group):
+    """``model_gradient_gram`` on one rank: G is the unsharded extraction's
+    bit for bit (one G launch), the Gram GᵀG to 1e-4."""
+    from edrgp_tpu_torch.parallel.edr_sharded import model_gradient_gram
+    X, y = _sharded_problem(2048, 6, seed=1)
+    m = ExactGPModel(X, y, RBF(6, ARD=True), noise_var=0.1, device="cuda")
+    G1 = m.predictive_gradients(X)[0][:, :, 0]
+    rbf.reset_launches()
+    G, gram = model_gradient_gram(m, X, nccl_group)
+    assert rbf.LAUNCHES["rbf_grad_mu"] == 1
+    assert np.array_equal(G, G1)
+    ref = G1.T @ G1
+    assert np.abs(gram - ref).max() / np.abs(ref).max() < 1e-4

@@ -189,7 +189,7 @@ def test_estimator_plumbing_matches_sklearn():
         check_array(np.zeros(3))
     with pytest.raises(ValueError):
         check_X_y(np.zeros((3, 2)), np.zeros(4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         edrgp_tpu_torch.EffectiveDimensionalityReduction(
             GaussianProcessRegressor(device="cpu"),
             edrgp_tpu_torch.SVDTransformer(), gradient_mesh=object()).fit(
