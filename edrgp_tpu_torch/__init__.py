@@ -2,7 +2,7 @@
 processes in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of :mod:`edrgp_tpu`, which stays the reference.  It imports
-neither JAX nor scikit-learn nor the JAX package.  Ported so far: the
+neither JAX nor scikit-learn nor the JAX package, and does what it does: the
 exact-GP EDR main path (Cholesky NLML with the trace-form adjoint, L-BFGS
 ML-II with restarts, predictive gradients, SVD, the iterative and block EDR
 with normalization); the kernel zoo (stationary, periodic, linear,
@@ -16,7 +16,11 @@ sparse VI, EP-DTC) behind ``models.GaussianProcessClassifier`` and
 ``models.SparseGaussianProcessClassifier``; and the heteroscedastic
 regressor ``models.GaussianProcessHeteroscedasticRegressor``; the HMC,
 NUTS and SMC samplers (``inference``) and the fully Bayesian regressor
-``models.BayesianGaussianProcessRegressor``.
+``models.BayesianGaussianProcessRegressor``; the multi-device layer
+(``parallel``) and the runtime around it (``checkpoint``, ``profiling``);
+its own PCA and SparsePCA (``decomposition``) for the EDR's DR method,
+preprocessor and sparse refit; and the entry points ``entry.entry`` and
+``entry.dryrun_multichip``.
 """
 
 from .edr.base import BaseEDR, BlockEDR, IterativeEDR

@@ -1,6 +1,6 @@
 """Synthetic datasets with known effective subspaces (numpy).
 
-The port of the main-path generators of :mod:`edrgp_tpu.datasets`, without
+The port of the generators of :mod:`edrgp_tpu.datasets`, without
 scikit-learn: the same functions draw the same numbers from the same ``rng``.
 """
 
@@ -14,7 +14,7 @@ from scipy.stats import special_ortho_group
 from .estimator import check_array
 
 __all__ = ["get_gaussian_inputs", "get_tanh_targets", "get_beta_inputs",
-           "get_edr_target"]
+           "get_edr_target", "get_branin_targets"]
 
 
 def _rng(rng):
@@ -91,4 +91,18 @@ def get_edr_target(X, sigma=None, rng=None):
     y = y.ravel()
     if sigma is not None:
         y = y + sigma * _normal(r, y.size)
+    return y
+
+
+def get_branin_targets(X, noise_std=None, rng=None):
+    """Branin function on [0,1]² (see https://www.sfu.ca/~ssurjano/branin.html)."""
+    r = _rng(rng)
+    X = np.asarray(X)
+    a, b, c = 1.0, 5.1 / (4 * math.pi ** 2), 5 / math.pi
+    rr, s, t = 6.0, 10.0, 1 / (8 * math.pi)
+    x0 = 15 * X[:, 0] - 5
+    x1 = 15 * X[:, 1]
+    y = a * (x1 - b * x0 ** 2 + c * x0 - rr) ** 2 + s * (1 - t) * np.cos(x0) + s
+    if noise_std is not None:
+        y = y + noise_std * _normal(r, X.shape[0])
     return y

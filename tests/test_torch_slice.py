@@ -82,7 +82,8 @@ def test_regressor_predictions_match_jax():
 
 def test_import_leaves_jax_and_sklearn_out():
     code = ("import sys, edrgp_tpu_torch, edrgp_tpu_torch.models, "
-            "edrgp_tpu_torch.datasets, edrgp_tpu_torch.convert; "
+            "edrgp_tpu_torch.datasets, edrgp_tpu_torch.convert, "
+            "edrgp_tpu_torch.decomposition, edrgp_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sklearn', 'optax', 'edrgp_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
