@@ -176,6 +176,16 @@ distributed — join a one-rank NCCL process group on the card (the
    once a fit; then ``model_gradient_gram`` at N=1,048,576 on svgp_edr's
    streamed SVGP model against its unsharded G (the same bits, the Gram
    1e-4);
+   surface — the routes no other phase drives: ``ops.sgpr.
+   predict_mean_grad_batched`` (8,192-row chunks) on sparse_edr's model at
+   its 100,000 rows against the unbatched call and float64 (each row 1e-6
+   of its own sum of |terms|: its weights cancel ~9,000-fold, so float32
+   rounding is a share of that, not of G), ``make_sharded_grad_gram`` on
+   main_path's GP against ``exact.predict_mean_grad`` (1e-6) and its Gram
+   against GᵀG (1e-4), ``add_jitter`` on the card (the host's bits), and
+   PCA's whitening, randomized and ARPACK solvers on main_path's gradient
+   matrix against the exact subspace (1e-6), with their host ms; G must
+   launch once a chunk and once a sharded call;
 22. sharded_svgp — ``make_sharded_svgp_step`` at config 5's shapes
    (8,192-row batches, M=512, Q=8): 10 steps against ``SVGPModel``'s own
    from the same start and batches (1e-4 of each largest entry), then
@@ -199,7 +209,7 @@ of bound, launches on the main path and, under ``launches_by_path``, on
 each EDR path (main_path, notebooks, sparse_edr, sparse_refit,
 svgp_stream, svgp_edr, cls_ep_edr, cls_sparse_edr, het_edr), on entry,
 each sampler path (nuts_gp, smc_gp, bayes_edr) and sharded path
-(sharded_nlml, sharded_edr, sharded_svgp, sharded_samplers,
+(sharded_nlml, sharded_edr, surface, sharded_svgp, sharded_samplers,
 dryrun_multichip);
 ``library_ms`` is null because no single PyTorch call computes
 any of the three functions), the ``nvidia-smi`` name and power limit, and
@@ -416,7 +426,10 @@ def phase_kernels():
     in Q=1 (their reduced fits), at N=200 in Q = 10, 2 (BriefIntro's first
     and last); entry's K and A at 2,048² in Q=8; sparse_refit's last fit,
     G at 100,000 by 512 and K(Z, X*) at 512 by 2,000 in Q=2; the dry
-    run's K at 16² in Q=3 and G at 8² in Q = 4, 2."""
+    run's K at 16² in Q=3 and G at 8² in Q = 4, 2; surface's chunks of
+    sparse_edr's last model, G at 8,192 and at the last 1,696 of its
+    100,000 rows by 512 in Q=3 (its sharded call is main_path's 8,192²
+    in Q=3, above)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     qs = (10, 7, 4, 3)
@@ -440,7 +453,8 @@ def phase_kernels():
                         (100000, 512, 8),
                         *[(100000, 512, Q) for Q in qs],
                         *[(1024, 1024, Q) for Q in qs], *notebooks,
-                        (100000, 512, 2), (8, 8, 4), (8, 8, 2)],
+                        (100000, 512, 2), (8, 8, 4), (8, 8, 2),
+                        (8192, 512, 3), (1696, 512, 3)],
         "rbf_nlml_adjoint": [(1537, 1537, 10), *fits, (8191, 8191, 10),
                              *chains, *notebooks, (500, 500, 1),
                              (2048, 2048, 8)],
@@ -613,7 +627,8 @@ def phase_main_path(device="cuda", N=8192, max_iters=200):
           "bad predictions")
     check(disc < 0.1, f"discrepancy {disc:.3g} >= 0.1")
     phase_gradients(device, X, y)
-    return launches, edr.components_.T
+    return (launches, edr.components_.T,
+            (_stash(model, "main_path"), edr._first_gradients_))
 
 
 def phase_gradients(device, X, y):
@@ -971,9 +986,10 @@ def phase_sparse_edr(device="cuda", N=100_000, max_iters=200):
     check(np.isfinite(pred).all() and pred.shape == y_test.shape,
           "bad predictions")
     check(disc < 0.1, f"sparse EDR discrepancy {disc:.3g} >= 0.1")
+    path = _stash(edr.estimator_.estimator_, "sparse_edr")
     del edr
     torch.cuda.empty_cache()
-    return launches
+    return launches, path
 
 
 #: The reference's notebook workloads whose card and CPU float64 subspaces
@@ -2509,7 +2525,7 @@ def phase_sharded_edr(mesh, main_comps, svgp_handoff, device="cuda", N=8192,
     from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
                                  SVDTransformer, discrepancy)
     from edrgp_tpu_torch.models import GaussianProcessRegressor
-    from edrgp_tpu_torch.models.state import ExactGPModel, load_model
+    from edrgp_tpu_torch.models.state import ExactGPModel
     from edrgp_tpu_torch.ops.cuda import rbf
     from edrgp_tpu_torch.parallel import edr_sharded
     D = 3
@@ -2542,10 +2558,7 @@ def phase_sharded_edr(mesh, main_comps, svgp_handoff, device="cuda", N=8192,
     gram_errs = [e for e, _ in grams]
 
     path, X1m, G1m = svgp_handoff
-    try:
-        model = load_model(path, device=device)
-    finally:
-        os.unlink(path)
+    model = _loaded(path, device)
     rbf.reset_launches()
     t0 = time.perf_counter()
     G, gram = edr_sharded.model_gradient_gram(model, X1m, mesh)
@@ -2582,6 +2595,155 @@ def phase_sharded_edr(mesh, main_comps, svgp_handoff, device="cuda", N=8192,
     del edr, model
     _empty_cache(device)
     return {k: launches[k] + capstone_launches[k] for k in launches}
+
+
+def _loaded(path, device):
+    """The model pickled at ``path`` by an earlier phase, loaded onto
+    ``device``; the file is deleted."""
+    from edrgp_tpu_torch.models.state import load_model
+    try:
+        return load_model(path, device=device)
+    finally:
+        os.unlink(path)
+
+
+def _grad_terms(Xnew, C, w, lengthscale, sigma2, rows=8192):
+    """For each row x of Xnew, the largest over q of
+    Σᵢ |wᵢ| k(x, cᵢ) |cᵢq − xq|/ℓq²: the size of the terms whose sum is
+    that row's G.  Where w's entries cancel, the row's float32 rounding is
+    a share of this, not of its G."""
+    import torch
+    from edrgp_tpu_torch.ops.cuda import rbf
+    Xs, Cs = Xnew / lengthscale, C / lengthscale
+    out = []
+    for xs in Xs.split(rows):
+        Wk = rbf.rbf_kernel_matrix_plain(xs, Cs, sigma2) * w.abs()[None, :]
+        d = (Cs[None] - xs[:, None]).abs() / lengthscale
+        out.append(torch.einsum("mn,mnq->mq", Wk, d).amax(1))
+    return torch.cat(out).cpu()
+
+
+def phase_surface(mesh, main_handoff, sparse_path, device="cuda",
+                  batch=8192):
+    """The routes with no earlier phase of their own:
+    ``ops.sgpr.predict_mean_grad_batched`` (batch 8,192) on sparse_edr's
+    regressor at its N=100,000 training rows against the unbatched
+    ``predict_mean_grad`` and both against the plain version in float64 on
+    the card, each row within 1e-6 of the sum of |terms| that its G adds
+    (:func:`_grad_terms`), with whether the two are the same bits; ``parallel.edr_sharded.make_sharded_grad_gram`` on
+    main_path's GP at its N=8,192 rows against the single-device
+    ``exact.predict_mean_grad`` (1e-6) and its Gram against GᵀG (1e-4),
+    with the kernel's own parameters and with them passed in (the same
+    bits); ``ops.linalg.add_jitter`` on the card against the host (the
+    same bits); and PCA's whitening, randomized and ARPACK solvers on
+    main_path's gradient matrix on the host, each against the exact
+    solver's subspace (< 1e-6), with their host ms."""
+    import torch
+    from edrgp_tpu_torch import discrepancy
+    from edrgp_tpu_torch.decomposition import PCA
+    from edrgp_tpu_torch.ops import exact, linalg, sgpr
+    from edrgp_tpu_torch.ops.cuda import rbf
+    from edrgp_tpu_torch.parallel.edr_sharded import make_sharded_grad_gram
+    main_path, G_main = main_handoff
+    sparse, gp = _loaded(sparse_path, device), _loaded(main_path, device)
+    beta = sparse._posterior()[2]
+    Xs = sparse._X
+    kernel, C, w = gp._gradient_basis()
+    fn = make_sharded_grad_gram(kernel, mesh)
+    own = {k: v.detach() for k, v in kernel.named_parameters()}
+
+    rbf.reset_launches()
+    t0 = time.perf_counter()
+    G_batched = sgpr.predict_mean_grad_batched(sparse, beta, Xs, batch=batch)
+    _sync(device)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G_local, gram = fn(None, C, w, gp._X, gp._X.shape[0])
+    _sync(device)
+    sharded_s = time.perf_counter() - t0
+    G_passed, _ = fn(own, C, w, gp._X, gp._X.shape[0])
+    launches = dict(rbf.LAUNCHES)
+
+    G_whole = sgpr.predict_mean_grad(sparse, beta, Xs)
+    ls, var = exact._scaled_rbf(sparse.kernel, Xs.shape[1])
+    args64 = [t.detach().double() for t in (Xs, sparse.Z, beta, ls, var)]
+    G64 = rbf.rbf_grad_mu_plain(*args64).cpu()
+    terms = _grad_terms(*args64).clamp_min(torch.finfo(torch.float64).tiny)
+    G_single = exact.predict_mean_grad(gp, C, w, gp._X)
+    Gl = G_local.double()
+    gram_err = _rel_to_max(gram.cpu(), (Gl.T @ Gl).cpu())
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    A = torch.randn(4, 512, 512, device=device, generator=gen)
+    A = A @ A.mT
+    jit = torch.rand(4, 1, 1, device=device, generator=gen) * 1e-3
+    eye = torch.eye(512)
+    jitter_same = (torch.equal(linalg.add_jitter(A, jit).cpu(),
+                               A.cpu() + jit.cpu() * eye)
+                   and torch.equal(linalg.add_jitter(A, 1e-4).cpu(),
+                                   A.cpu() + 1e-4 * eye))
+
+    D = 3
+    pca = {}
+    for name, kw in (("exact", {"svd_solver": "full"}),
+                     ("whiten", {"whiten": True}),
+                     ("randomized", {"svd_solver": "randomized"}),
+                     ("arpack", {"svd_solver": "arpack"})):
+        t0 = time.perf_counter()
+        p = PCA(n_components=D, random_state=0, **kw).fit(G_main)
+        ms = 1e3 * (time.perf_counter() - t0)
+        pca[name] = {"host_ms": ms, "components": p.components_.T}
+    for name in ("whiten", "randomized", "arpack"):
+        pca[name]["discrepancy_to_exact"] = discrepancy(
+            pca["exact"]["components"], pca[name]["components"])
+    err_to_terms = {
+        name: float(((a.cpu().double() - b.cpu().double()).abs().amax(1)
+                     / terms).max())
+        for name, a, b in (("batched_unbatched", G_batched, G_whole),
+                           ("batched_f64", G_batched, G64),
+                           ("unbatched_f64", G_whole, G64))}
+    emit(phase="surface",
+         sgpr_batched=dict(N=Xs.shape[0], M=int(sparse.Z.shape[0]),
+                           Q=Xs.shape[1], batch=batch, seconds=batched_s,
+                           rel_err=_rel_to_max(G_batched.cpu(),
+                                               G_whole.cpu()),
+                           same_bits=bool(torch.equal(G_batched, G_whole)),
+                           terms_over_max=float(terms.max()
+                                                / G64.abs().max()),
+                           err_to_terms=err_to_terms,
+                           rel_err_f64={"batched": _rel_to_max(
+                               G_batched.cpu(), G64), "unbatched":
+                               _rel_to_max(G_whole.cpu(), G64)}),
+         sharded_grad_gram=dict(N=gp._X.shape[0], seconds=sharded_s,
+                                rel_err=_rel_to_max(G_local.cpu(),
+                                                    G_single.cpu()),
+                                same_bits=bool(torch.equal(G_local,
+                                                           G_single)),
+                                params_passed_same_bits=bool(
+                                    torch.equal(G_passed, G_local)),
+                                gram_rel_err=gram_err),
+         add_jitter_same_bits=jitter_same,
+         pca={k: {f: v for f, v in d.items() if f != "components"}
+              for k, d in pca.items()},
+         gradient_matrix=list(G_main.shape), launches=launches)
+    chunks = -(-Xs.shape[0] // batch)
+    check(launches["rbf_grad_mu"] == chunks + 2,
+          f"G did not launch once a chunk and once a sharded call: "
+          f"{launches}, {chunks} chunks")
+    check(max(err_to_terms.values()) < 1e-6,
+          f"the batched SGPR gradients, the unbatched ones and float64 "
+          f"differ by more than float32 rounding: {err_to_terms}")
+    check(_rel_to_max(G_local.cpu(), G_single.cpu()) < 1e-6
+          and torch.equal(G_passed, G_local),
+          "make_sharded_grad_gram's G differs from the single-device G")
+    check(gram_err < 1e-4, f"the sharded Gram differs by {gram_err:.3g}")
+    check(jitter_same, "add_jitter on the card differs from the host")
+    for name in ("whiten", "randomized", "arpack"):
+        d = pca[name]["discrepancy_to_exact"]
+        check(d < 1e-6, f"PCA {name}: subspace {d:.3g} from the exact one")
+    del sparse, gp
+    _empty_cache(device)
+    return launches
 
 
 def phase_sharded_svgp(mesh, device="cuda", B=8192, M=512, Q=8,
@@ -2905,11 +3067,11 @@ def main():
     summary = phase_kernels()
     phase_nlml()
     phase_small_reference()
-    launches, main_comps = phase_main_path()
+    launches, main_comps, main_handoff = phase_main_path()
     finish_notebooks = phase_notebooks()
     entry_launches = phase_entry()
     phase_sgpr()
-    sparse_launches = phase_sparse_edr()
+    sparse_launches, sparse_path = phase_sparse_edr()
     refit_launches = phase_sparse_refit()
     notebook_launches = finish_notebooks()
     phase_svgp_reference()
@@ -2930,6 +3092,8 @@ def main():
             sharded_nlml_launches = phase_sharded_nlml(mesh)
             sharded_edr_launches = phase_sharded_edr(mesh, main_comps,
                                                      handoff)
+            surface_launches = phase_surface(mesh, main_handoff,
+                                             sparse_path)
             sharded_svgp_launches = phase_sharded_svgp(mesh)
             sharded_sampler_launches = phase_sharded_samplers(theta_hat)
             phase_aux(mesh, theta_hat)
@@ -2938,8 +3102,9 @@ def main():
             import torch.distributed as dist
             dist.destroy_process_group()
     finally:
-        if os.path.exists(handoff[0]):
-            os.unlink(handoff[0])
+        for path in (handoff[0], main_handoff[0], sparse_path):
+            if os.path.exists(path):
+                os.unlink(path)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
@@ -2959,6 +3124,7 @@ def main():
                               "bayes_edr": bayes_launches[name],
                               "sharded_nlml": sharded_nlml_launches[name],
                               "sharded_edr": sharded_edr_launches[name],
+                              "surface": surface_launches[name],
                               "sharded_svgp": sharded_svgp_launches[name],
                               "sharded_samplers":
                                   sharded_sampler_launches[name],

@@ -8,9 +8,10 @@ numbers, as it carries ``StandardScaler`` and ``clone`` (:mod:`.estimator`).
 * :class:`PCA` follows ``sklearn/decomposition/_pca.py``: centre on
   ``mean_``, take the top right-singular vectors signed as
   ``svd_flip(..., u_based_decision=False)`` signs them, and the variances
-  with divisor N − 1.  Every solver scikit-learn offers for exact PCA gives
-  these components; whitening and the randomized and ARPACK solvers are
-  not carried.
+  with divisor N − 1, by an exact SVD, scikit-learn's randomized SVD
+  (``utils/extmath.py``: ``_randomized_range_finder``, ``_randomized_svd``)
+  or ARPACK through SciPy's ``svds``, each drawing from ``random_state`` as
+  scikit-learn does; ``whiten`` scales ``transform`` by the variances.
 * :class:`SparsePCA` follows ``sklearn/decomposition/_sparse_pca.py``
   (``fit``, ``_fit``, ``transform``) over ``_dict_learning.py``
   (``_dict_learning``, ``_update_dict``, ``_sparse_encode_precomputed``):
@@ -65,41 +66,147 @@ def check_random_state(seed) -> np.random.RandomState:
     raise ValueError(f"{seed!r} cannot be used to seed a RandomState")
 
 
-class PCA(BaseEstimator, TransformerMixin):
-    """Principal component analysis by an exact SVD of the centred data.
+def _randomized_range_finder(A, size: int, n_iter: int,
+                             power_iteration_normalizer: str, random_state):
+    """scikit-learn's ``_randomized_range_finder``: an orthonormal basis
+    [n, size] of the range of A from a Gaussian sketch ``random_state.
+    normal(size=(A.shape[1], size))``, after ``n_iter`` power iterations
+    normalised by LU (``"auto"`` above 2 iterations), QR or nothing."""
+    from scipy import linalg
+    Q = random_state.normal(size=(A.shape[1], size))
+    if power_iteration_normalizer == "auto":
+        power_iteration_normalizer = "none" if n_iter <= 2 else "LU"
+    if power_iteration_normalizer == "QR":
+        def normalizer(M):
+            return linalg.qr(M, mode="economic", check_finite=False)[0]
+    elif power_iteration_normalizer == "LU":
+        def normalizer(M):
+            return linalg.lu(M, permute_l=True, check_finite=False)[0]
+    else:
+        def normalizer(M):
+            return M
+    for _ in range(n_iter):
+        Q = normalizer(A @ Q)
+        Q = normalizer(A.T @ Q)
+    return linalg.qr(A @ Q, mode="economic", check_finite=False)[0]
 
-    ``n_components``: None keeps min(n_samples, n_features); an int keeps
-    that many; a float in (0, 1) keeps the fewest whose cumulative
-    explained-variance ratio exceeds it.  ``whiten`` and ``svd_solver``
-    are scikit-learn's names: whitening and the ``"randomized"`` and
-    ``"arpack"`` solvers raise; ``"auto"``, ``"full"`` and
-    ``"covariance_eigh"`` all give the exact components.
+
+def _randomized_svd(M, n_components: int, n_oversamples: int, n_iter,
+                    power_iteration_normalizer: str, random_state):
+    """scikit-learn's ``_randomized_svd`` with ``flip_sign=False``: the
+    range of M (of Mᵀ when M is wide) from :func:`_randomized_range_finder`
+    with ``n_components + n_oversamples`` columns, an exact SVD of M
+    projected on it, the leading ``n_components`` triplets."""
+    from scipy import linalg
+    if n_iter == "auto":
+        n_iter = 7 if n_components < 0.1 * min(M.shape) else 4
+    transpose = M.shape[0] < M.shape[1]
+    if transpose:
+        M = M.T
+    Q = _randomized_range_finder(M, n_components + n_oversamples, n_iter,
+                                 power_iteration_normalizer, random_state)
+    Uhat, S, Vt = linalg.svd(Q.T @ M, full_matrices=False,
+                             lapack_driver="gesdd")
+    U = Q @ Uhat
+    if transpose:
+        return Vt[:n_components].T, S[:n_components], U[:, :n_components].T
+    return U[:, :n_components], S[:n_components], Vt[:n_components]
+
+
+class PCA(BaseEstimator, TransformerMixin):
+    """Principal component analysis, as ``sklearn.decomposition.PCA``.
+
+    ``n_components``: None keeps min(n_samples, n_features) (one fewer for
+    ``"arpack"``); an int keeps that many; a float in (0, 1) keeps the
+    fewest whose cumulative explained-variance ratio exceeds it (exact
+    solvers only).  ``svd_solver``:
+
+    * ``"full"`` and ``"covariance_eigh"``: the exact SVD of the centred
+      data;
+    * ``"randomized"``: Halko et al.'s randomized SVD with
+      ``n_oversamples``, ``iterated_power`` power iterations and
+      ``power_iteration_normalizer``, its sketch drawn from
+      ``random_state``;
+    * ``"arpack"``: ``scipy.sparse.linalg.svds`` with ``tol`` from
+      ``random_state.uniform(-1, 1, min(X.shape))``;
+    * ``"auto"``: scikit-learn's choice among them from the shape.
+
+    Components are signed as ``svd_flip(..., u_based_decision=False)``
+    signs them.  ``whiten`` divides ``transform``'s output by
+    √``explained_variance_``; ``components_`` stay unit rows.  Input is
+    taken in float64.
 
     Attributes: ``components_`` (n_components, n_features), ``mean_``,
     ``explained_variance_`` (divisor N − 1), ``explained_variance_ratio_``,
     ``singular_values_``, ``n_components_``, ``n_samples_``.
     """
 
-    def __init__(self, n_components=None, *, whiten=False, svd_solver="auto"):
+    _SOLVERS = ("auto", "full", "covariance_eigh", "randomized", "arpack")
+    _NORMALIZERS = ("auto", "QR", "LU", "none")
+
+    def __init__(self, n_components=None, *, whiten=False, svd_solver="auto",
+                 tol=0.0, iterated_power="auto", n_oversamples=10,
+                 power_iteration_normalizer="auto", random_state=None):
         self.n_components = n_components
         self.whiten = whiten
         self.svd_solver = svd_solver
+        self.tol = tol
+        self.iterated_power = iterated_power
+        self.n_oversamples = n_oversamples
+        self.power_iteration_normalizer = power_iteration_normalizer
+        self.random_state = random_state
+
+    def _solver(self, n_samples: int, n_features: int) -> str:
+        """``svd_solver`` with ``"auto"`` resolved as scikit-learn resolves
+        it for dense input."""
+        if self.svd_solver not in self._SOLVERS:
+            raise ValueError(f"svd_solver={self.svd_solver!r} is not "
+                             f"supported: one of {self._SOLVERS}")
+        if self.power_iteration_normalizer not in self._NORMALIZERS:
+            raise ValueError(
+                f"power_iteration_normalizer="
+                f"{self.power_iteration_normalizer!r} is not supported: "
+                f"one of {self._NORMALIZERS}")
+        if self.svd_solver != "auto":
+            return self.svd_solver
+        nc = min(n_samples, n_features) if self.n_components is None \
+            else self.n_components
+        if n_features <= 1_000 and n_samples >= 10 * n_features:
+            return "covariance_eigh"
+        if max(n_samples, n_features) <= 500 or isinstance(nc, str):
+            return "full"
+        if 1 <= nc < 0.8 * min(n_samples, n_features):
+            return "randomized"
+        return "full"
 
     def fit(self, X, y=None):
-        if self.whiten:
-            raise ValueError("PCA(whiten=True) is not supported")
-        if self.svd_solver not in ("auto", "full", "covariance_eigh"):
-            raise ValueError(f"svd_solver={self.svd_solver!r} is not "
-                             "supported: only exact PCA is")
         X = check_array(X).astype(np.float64, copy=False)
         n_samples, n_features = X.shape
+        solver = self._solver(n_samples, n_features)
         self.mean_ = X.mean(axis=0)
-        _, S, Vt = np.linalg.svd(X - self.mean_, full_matrices=False)
-        _, Vt = svd_flip(None, Vt, u_based_decision=False)
-        variance = S ** 2 / max(n_samples - 1, 1)
-        total = variance.sum()
-        ratio = variance / total if total > 0 else np.zeros_like(variance)
-        k = self._n_keep(ratio, n_samples, n_features)
+        Xc = X - self.mean_
+        if solver in ("randomized", "arpack"):
+            k = self._n_truncated(solver, n_samples, n_features)
+            random_state = check_random_state(self.random_state)
+            if solver == "arpack":
+                from scipy.sparse.linalg import svds
+                v0 = random_state.uniform(-1, 1, min(X.shape))
+                _, S, Vt = svds(Xc, k=k, tol=self.tol, v0=v0)
+                S, Vt = S[::-1], Vt[::-1]
+            else:
+                _, S, Vt = _randomized_svd(
+                    Xc, k, self.n_oversamples, self.iterated_power,
+                    self.power_iteration_normalizer, random_state)
+            _, Vt = svd_flip(None, Vt, u_based_decision=False)
+            variance = S ** 2 / (n_samples - 1)
+            ratio = variance / (np.sum(Xc ** 2) / (n_samples - 1))
+        else:
+            _, S, Vt = np.linalg.svd(Xc, full_matrices=False)
+            _, Vt = svd_flip(None, Vt, u_based_decision=False)
+            variance = S ** 2 / max(n_samples - 1, 1)
+            total = variance.sum()
+            ratio = variance / total if total > 0 else np.zeros_like(variance)
+            k = self._n_keep(ratio, n_samples, n_features)
         self.components_ = Vt[:k]
         self.explained_variance_ = variance[:k]
         self.explained_variance_ratio_ = ratio[:k]
@@ -107,6 +214,26 @@ class PCA(BaseEstimator, TransformerMixin):
         self.n_components_ = k
         self.n_samples_ = n_samples
         return self
+
+    def _n_truncated(self, solver: str, n_samples: int,
+                     n_features: int) -> int:
+        """The number of components of a truncated solver, with
+        scikit-learn's bounds: an int in [1, min(shape)], below min(shape)
+        for ARPACK, whose default is min(shape) − 1."""
+        most = min(n_samples, n_features)
+        nc = self.n_components
+        if nc is None:
+            nc = most - 1 if solver == "arpack" else most
+        if (isinstance(nc, bool) or not isinstance(nc, (int, np.integer))
+                or not 1 <= nc <= most):
+            raise ValueError(f"n_components={nc!r} must be an int between 1 "
+                             f"and min(n_samples, n_features)={most} with "
+                             f"svd_solver={solver!r}")
+        if solver == "arpack" and nc == most:
+            raise ValueError(f"n_components={nc!r} must be strictly less "
+                             f"than min(n_samples, n_features)={most} with "
+                             "svd_solver='arpack'")
+        return int(nc)
 
     def _n_keep(self, ratio, n_samples: int, n_features: int) -> int:
         nc, most = self.n_components, min(n_samples, n_features)
@@ -120,11 +247,15 @@ class PCA(BaseEstimator, TransformerMixin):
         if isinstance(nc, float) and 0.0 < nc < 1.0:
             return int(np.searchsorted(np.cumsum(ratio), nc,
                                        side="right") + 1)
-        raise ValueError(f"invalid n_components: {nc!r}")
+        raise ValueError(f"n_components={nc!r} is not supported")
 
     def transform(self, X):
         check_is_fitted(self, "components_")
-        return (check_array(X) - self.mean_) @ self.components_.T
+        Xt = (check_array(X) - self.mean_) @ self.components_.T
+        if self.whiten:
+            scale = np.sqrt(self.explained_variance_)
+            Xt = Xt / np.maximum(scale, np.finfo(scale.dtype).eps)
+        return Xt
 
 
 def _lasso_exact(gram, cov, alpha: float, code):

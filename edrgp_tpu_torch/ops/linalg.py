@@ -14,7 +14,8 @@ import torch
 from ..config import MAX_JITTER_TRIES, base_jitter
 
 __all__ = ["safe_cholesky", "cholesky_once", "tri_solve", "cho_solve",
-           "logdet_from_chol", "logdet_and_quad", "jitter_ladder"]
+           "logdet_from_chol", "logdet_and_quad", "jitter_ladder",
+           "add_jitter"]
 
 
 def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
@@ -96,6 +97,14 @@ def safe_cholesky(A: torch.Tensor, jitter0: float | None = None):
         return L + 0.0 * A
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return torch.linalg.cholesky(A + jitter * eye)
+
+
+def add_jitter(A: torch.Tensor, jitter) -> torch.Tensor:
+    """A + jitter·I over the last two axes of A [..., n, n]; ``jitter`` is
+    a float or a tensor that broadcasts against [n, n] (0-d, or
+    [..., 1, 1] for one jitter a matrix)."""
+    n = A.shape[-1]
+    return A + jitter * torch.eye(n, dtype=A.dtype, device=A.device)
 
 
 def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu import EffectiveDimensionalityReduction as JEDR
 from edrgp_tpu import SVDTransformer as JSVD
 from edrgp_tpu.models import GaussianProcessClassifier as JGPC

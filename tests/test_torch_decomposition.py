@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import scipy.sparse
 import sklearn.decomposition as skd
-import torch
 from scipy.linalg import eigh
 
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu
 import edrgp_tpu.datasets as jdatasets
 import edrgp_tpu_torch
@@ -28,17 +28,6 @@ from edrgp_tpu_torch.estimator import clone
 from edrgp_tpu_torch.models import GaussianProcessRegressor as TGPR
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module's small fits: the suite's workers
-    share the machine's cores, and torch's default thread count there makes
-    each small operation wait on the others."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _sparse_recovery():
@@ -100,17 +89,70 @@ def test_pca_matches_sklearn(shape, n_components):
 
 
 def test_pca_refuses_what_it_does_not_carry():
+    """What scikit-learn refuses, and what the port does not carry, raise
+    and name the option."""
     X = np.random.default_rng(0).normal(size=(30, 4))
-    for kw in ({"whiten": True}, {"svd_solver": "randomized"},
-               {"svd_solver": "arpack"}, {"n_components": 5},
-               {"n_components": 1.5}):
-        with pytest.raises(ValueError):
+    for kw, name in (({"n_components": 5}, "n_components"),
+                     ({"n_components": 1.5}, "n_components"),
+                     ({"n_components": "mle"}, "n_components"),
+                     ({"svd_solver": "lobpcg"}, "svd_solver"),
+                     ({"svd_solver": "randomized", "n_components": 0.5},
+                      "n_components"),
+                     ({"svd_solver": "arpack", "n_components": 4},
+                      "n_components"),
+                     ({"svd_solver": "randomized",
+                       "power_iteration_normalizer": "Cholesky"},
+                      "power_iteration_normalizer")):
+        with pytest.raises(ValueError, match=name):
             PCA(**kw).fit(X)
+    wide = np.random.default_rng(1).normal(size=(600, 100))
+    with pytest.raises(ValueError, match="n_components"):
+        PCA(n_components="mle").fit(wide)   # where "auto" weighs randomized
+
+
+#: PCA's options against scikit-learn's, with their bars: whitening and
+#: the randomized solver draw the same numbers and agree to 1e-10, ARPACK
+#: to 1e-8.
+OPTIONS = {"whiten": ({"whiten": True}, 1e-10),
+           "randomized": ({"svd_solver": "randomized"}, 1e-10),
+           "randomized_whiten": ({"svd_solver": "randomized",
+                                  "whiten": True}, 1e-10),
+           "arpack": ({"svd_solver": "arpack"}, 1e-8),
+           "arpack_whiten": ({"svd_solver": "arpack", "whiten": True}, 1e-8)}
+
+
+@pytest.mark.parametrize("random_state", [0, 1])
+@pytest.mark.parametrize("option", list(OPTIONS))
+@pytest.mark.parametrize("matrix", ["brief_intro", "spca_vs_pca"])
+def test_pca_options_match_sklearn(gradients, matrix, option, random_state):
+    G, k = gradients[matrix]
+    kw, tol = OPTIONS[option]
+    kw = dict(kw, n_components=k, random_state=random_state)
+    want = skd.PCA(**kw).fit(G)
+    got = PCA(**kw).fit(G)
+    assert got.n_components_ == want.n_components_
+    for name in ("components_", "explained_variance_",
+                 "explained_variance_ratio_", "singular_values_"):
+        w = getattr(want, name)
+        np.testing.assert_allclose(getattr(got, name), w, rtol=tol,
+                                   atol=tol * np.abs(w).max(), err_msg=name)
+    w = want.transform(G)
+    np.testing.assert_allclose(got.transform(G), w, rtol=tol,
+                               atol=tol * np.abs(w).max())
 
 
 @pytest.mark.parametrize("port, sk", [
     (PCA(n_components=2, svd_solver="full"),
      skd.PCA(n_components=2, svd_solver="full")),
+    (PCA(n_components=2, whiten=True, svd_solver="randomized",
+         iterated_power=3, n_oversamples=5, power_iteration_normalizer="QR",
+         random_state=4),
+     skd.PCA(n_components=2, whiten=True, svd_solver="randomized",
+             iterated_power=3, n_oversamples=5,
+             power_iteration_normalizer="QR", random_state=4)),
+    (PCA(n_components=2, svd_solver="arpack", tol=1e-9, random_state=1),
+     skd.PCA(n_components=2, svd_solver="arpack", tol=1e-9,
+             random_state=1)),
     (SparsePCA(n_components=3, alpha=2, ridge_alpha=0.1, random_state=0),
      skd.SparsePCA(n_components=3, alpha=2, ridge_alpha=0.1,
                    random_state=0))])
@@ -210,6 +252,16 @@ def _case(name):
                     TGPR(device="cpu"), edrgp_tpu_torch.SVDTransformer(),
                     n_components=1, preprocessor=PCA(n_components=2)),
                 None, "components_")
+    if name == "whitened_preprocessor":
+        return (_chain_pca_data(),
+                edrgp_tpu.EffectiveDimensionalityReduction(
+                    JGPR(), edrgp_tpu.SVDTransformer(), n_components=1,
+                    preprocessor=skd.PCA(n_components=2, whiten=True)),
+                edrgp_tpu_torch.EffectiveDimensionalityReduction(
+                    TGPR(device="cpu"), edrgp_tpu_torch.SVDTransformer(),
+                    n_components=1,
+                    preprocessor=PCA(n_components=2, whiten=True)),
+                None, "components_")
     if name == "refit":
         return (_brief_intro_sparse(),
                 edrgp_tpu.EffectiveDimensionalityReduction(
@@ -231,7 +283,8 @@ def _case(name):
             "refit_components_")
 
 
-@pytest.mark.parametrize("name", ["dr_method", "preprocessor", "refit",
+@pytest.mark.parametrize("name", ["dr_method", "preprocessor",
+                                  "whitened_preprocessor", "refit",
                                   "block_refit"])
 def test_edr_with_port_decomposition_matches_jax(name):
     (X, y), jedr, tedr, refit, attr = _case(name)

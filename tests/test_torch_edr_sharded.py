@@ -13,13 +13,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_ranks
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
 from edrgp_tpu.models.state import SGPRModel as JSGPRModel
 from edrgp_tpu.models.svgp import SVGPModel as JSVGPModel
 from edrgp_tpu.ops import kernels as jk
 from edrgp_tpu.ops.svgp import SVGPState as JSVGPState
+from edrgp_tpu.parallel import edr_sharded as jedr_sharded
+from edrgp_tpu.parallel.mesh import make_mesh
 from edrgp_tpu_torch import discrepancy
 from edrgp_tpu_torch.convert import params_to_numpy
 from edrgp_tpu_torch.datasets import get_beta_inputs, get_edr_target
@@ -61,6 +65,19 @@ def _reference(name, model, X, y):
     return np.asarray(jm.predictive_gradients(X)[0][:, :, 0])
 
 
+def _grad_gram_cases(n=103, q=4, m=17, seed=8):
+    """(kernel name, X, C, w, JAX kernel params, chunk): 103 rows over 4
+    ranks, so the last slab holds 25 rows and 1 pad row; the Matern52 case
+    takes the chunked autodiff path in chunks of 8 rows."""
+    rng = np.random.default_rng(seed)
+    X, C, w = (rng.normal(size=(n, q)), rng.normal(size=(m, q)),
+               rng.normal(size=m))
+    return [("RBF", X, C, w, {"variance": np.array(0.3),
+                              "lengthscale": rng.uniform(-0.5, 1.0, q)}, 8),
+            ("Matern52", X, C, w, {"variance": np.array(-0.2),
+                                   "lengthscale": np.array([0.6])}, 8)]
+
+
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     d = tmp_path_factory.mktemp("edr_sharded")
@@ -89,6 +106,7 @@ def case(tmp_path_factory):
     X, y, B = _problem(n=150, q=6, d=2, seed=4)
     X5, y5, _ = _problem(n=120, q=5, d=2, seed=6)
     payload = {"models": models, "mean_function": _problem(n=64, q=3)[:2],
+               "grad_gram": _grad_gram_cases(),
                "edr": {"plain": (X, y, None, 4, 200),
                        "preprocessed": (X5, y5, 4, None, 150)}}
     ranks = spawn(torch_ranks.edr_sharded, RANKS, device="cpu",
@@ -98,6 +116,41 @@ def case(tmp_path_factory):
     unsharded = {name: model.predictive_gradients(X)[0][:, :, 0]
                  for name, (model, X, _) in fitted.items()}
     return ranks, refs, unsharded, B
+
+
+@pytest.mark.parametrize("name", ["RBF", "Matern52"])
+def test_make_sharded_grad_gram_matches_jax(case, name):
+    """Each rank's slab of G, gathered, and the summed Gram against the JAX
+    package's ``make_sharded_grad_gram`` on a 4-device CPU mesh (1e-10),
+    the pad row zero, and the Gram GᵀG."""
+    ranks = case[0]
+    _, X, C, w, params, chunk = next(c for c in _grad_gram_cases()
+                                     if c[0] == name)
+    N, Q = X.shape
+    rows = -(-N // RANKS)
+    mesh = make_mesh(("data",), devices=jax.devices()[:RANKS])
+    kern = jk.RBF(Q, ARD=True) if name == "RBF" else jk.Matern52(Q)
+    Xp = jax.device_put(jnp.asarray(np.pad(X, ((0, rows * RANKS - N),
+                                               (0, 0)))),
+                        NamedSharding(mesh, P("data", None)))
+    fn = jedr_sharded.make_sharded_grad_gram(kern, mesh, chunk=chunk)
+    G_ref, gram_ref = fn(jax.tree_util.tree_map(jnp.asarray, params),
+                         jnp.asarray(C), jnp.asarray(w), Xp,
+                         jnp.asarray(N, jnp.int32))
+    G = np.concatenate([out["grad_gram"][name][0] for out in ranks])
+    np.testing.assert_allclose(G, np.asarray(G_ref), rtol=1e-10,
+                               atol=1e-10 * np.abs(G_ref).max())
+    assert not G[N:].any()
+    for out in ranks:
+        gram = out["grad_gram"][name][1]
+        np.testing.assert_allclose(gram, np.asarray(gram_ref), rtol=1e-10)
+        np.testing.assert_allclose(gram, G.T @ G, rtol=1e-10)
+
+
+def test_make_sharded_grad_gram_refuses_unknown_parameters(case):
+    """A name in kparams that the kernel does not have raises, naming it."""
+    for out in case[0]:
+        assert "'length_scale'" in out["unknown_kparams_error"]
 
 
 BARS = {"exact": (1e-9, 1e-11, 1e-9, 1e-9), "ragged": (1e-9, 1e-11, 1e-9, 1e-9),

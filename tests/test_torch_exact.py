@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.ops import exact as jexact
 from edrgp_tpu.ops import kernels as jkernels
 from edrgp_tpu.ops import linalg as jlinalg
@@ -158,6 +159,25 @@ def test_jitter_ladder_matches_jax_on_indefinite_matrix():
         _close(got, L_ref, 1e-7)
     hopeless = -np.eye(3)
     assert torch.isnan(linalg.cholesky_once(torch.from_numpy(hopeless))).all()
+
+
+@pytest.mark.parametrize("jitter", ["float", "scalar_tensor",
+                                    "per_matrix"])
+def test_add_jitter_matches_jax_bit_for_bit(jitter):
+    """A + jitter·I on a batch [3, 5, 5] equals the JAX package's bit for
+    bit, for a float, a 0-d tensor and one jitter per matrix [3, 1, 1]."""
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(3, 5, 5))
+    j = {"float": 1e-6, "scalar_tensor": np.array(3.7e-5),
+         "per_matrix": rng.uniform(1e-8, 1e-4, size=(3, 1, 1))}[jitter]
+    want = np.asarray(jlinalg.add_jitter(jnp.asarray(A), j if jitter ==
+                                         "float" else jnp.asarray(j)))
+    got = linalg.add_jitter(torch.from_numpy(A), j if jitter == "float"
+                            else torch.from_numpy(np.asarray(j)))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(linalg.add_jitter(torch.from_numpy(A[0]), 1e-6)
+                          .numpy(), np.asarray(jlinalg.add_jitter(
+                              jnp.asarray(A[0]), 1e-6)))
 
 
 def test_single_start_fit_matches_jax():

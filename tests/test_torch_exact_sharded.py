@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_ranks
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models import GaussianProcessRegressor as JGaussianProcessRegressor
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
 from edrgp_tpu.ops import exact as jexact

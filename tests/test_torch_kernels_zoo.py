@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
 from edrgp_tpu.ops import exact as jexact
 from edrgp_tpu.ops import kernels as jk
@@ -190,6 +191,32 @@ def test_make_kernel_errors_and_composition():
         assert isinstance(tk.make_kernel("MyRBF", None, 2), tk.RBF)
     finally:
         del tk.KERNEL_REGISTRY["MyRBF"]
+
+
+def test_register_kernel_builds_by_name_in_both_packages():
+    """A class registered through each package's ``ops.register_kernel`` is
+    built by ``make_kernel`` by name, with its options, and gives the same
+    K at the same parameters (1e-12)."""
+    import edrgp_tpu.ops as jops
+    import edrgp_tpu_torch.ops as tops
+    assert "register_kernel" in tops.__all__
+    X = np.random.default_rng(3).normal(size=(9, Q))
+    try:
+        for ops in (jops, tops):
+            ops.register_kernel("RegisteredMatern", ops.kernels.Matern52)
+        jkern = jops.make_kernel("RegisteredMatern", {"ARD": True}, Q)
+        tkern = tops.make_kernel(["RegisteredMatern"], [{"ARD": True}], Q)
+        assert type(jkern) is jk.Matern52 and type(tkern) is tk.Matern52
+        params = {"variance": np.array(0.2),
+                  "lengthscale": np.array([0.1, -0.4, 0.7])}
+        tkern.load_state_dict(params_from_jax(params))
+        want = jkern.K(jax.tree_util.tree_map(jnp.asarray, params),
+                       jnp.asarray(X), jnp.asarray(X[:4]))
+        _close(tkern.K(torch.from_numpy(X), torch.from_numpy(X[:4]))
+               .detach(), want, 1e-12)
+    finally:
+        for ops in (jops, tops):
+            ops.KERNEL_REGISTRY.pop("RegisteredMatern", None)
 
 
 def test_exact_gp_with_matern52_plus_white_matches_jax():

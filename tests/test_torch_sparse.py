@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu
 from edrgp_tpu.models import SparseGaussianProcessRegressor as JSGPR
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
@@ -115,6 +116,21 @@ def test_sgpr_posterior_prediction_and_gradients_match_jax(sgpr_case):
     want = jsgpr.predict_var_grad(jkern, jp, jcache, Xsj)
     _close(sgpr.predict_var_grad(m, cache, Xst), want, 1e-9)
     _close(sgpr.predict_var_grad(m, cache, Xst, batch=8), want, 1e-9)
+
+
+@pytest.mark.parametrize("batch", [8, 8192])
+def test_sgpr_batched_mean_gradient_matches_jax(sgpr_case, batch):
+    """``predict_mean_grad_batched`` against the JAX package's at 1e-10:
+    23 rows in chunks of 8 (the last chunk ragged) and in one chunk."""
+    X, y, jkern, params, _, _, jcache = sgpr_case
+    m = _port(X, y, params)
+    beta = sgpr.sgpr_posterior(m, m._X, m._y)[2]
+    Xs = np.random.default_rng(9).normal(size=(23, 3))
+    want = jsgpr.predict_mean_grad_batched(jkern, _jp(params), jcache[2],
+                                           jnp.asarray(Xs), batch)
+    got = sgpr.predict_mean_grad_batched(m, beta, torch.from_numpy(Xs),
+                                         batch=batch)
+    _close(got, want, 1e-10)
 
 
 def test_sgpr_gradients_take_the_generic_path_for_other_kernels():

@@ -4,13 +4,29 @@ Each function runs in every rank of a gloo group started by
 :func:`edrgp_tpu_torch.parallel.spawn` and returns numpy results for the
 test module to hold against the JAX package.  This module imports no JAX,
 so a rank starts in the time torch takes to import.
+
+It also holds :func:`one_torch_thread`, the autouse fixture every port test
+module imports.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from edrgp_tpu_torch.convert import params_from_jax
 from edrgp_tpu_torch.ops import kernels
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the importing module's tests: the suite's
+    workers share the machine's cores, and torch's default thread count
+    there makes each small operation wait on threads the other workers
+    hold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _kernel(name, q):
@@ -77,7 +93,8 @@ def exact_sharded(rank, world, payload):
 
 
 def edr_sharded(rank, world, payload):
-    """``model_gradient_gram`` of saved exact, SGPR and SVGP models, the
+    """``make_sharded_grad_gram`` on each rank's padded slab,
+    ``model_gradient_gram`` of saved exact, SGPR and SVGP models, the
     mean-function refusal, and the composed EDR with and without a
     gradient mesh."""
     from edrgp_tpu_torch import (EffectiveDimensionalityReduction,
@@ -85,9 +102,26 @@ def edr_sharded(rank, world, payload):
     from edrgp_tpu_torch.models import GaussianProcessRegressor
     from edrgp_tpu_torch.models.state import load_model
     from edrgp_tpu_torch.parallel import make_mesh
-    from edrgp_tpu_torch.parallel.edr_sharded import model_gradient_gram
+    from edrgp_tpu_torch.parallel.edr_sharded import (make_sharded_grad_gram,
+                                                      model_gradient_gram)
     mesh = make_mesh(("data",))
-    out = {"gram": {}}
+    out = {"gram": {}, "grad_gram": {}}
+    for name, X, C, w, params, chunk in payload["grad_gram"]:
+        N, Q = X.shape
+        rows = -(-N // world)
+        X_local = np.zeros((rows, Q))
+        mine = X[rank * rows:(rank + 1) * rows]
+        X_local[:len(mine)] = mine
+        fn = make_sharded_grad_gram(_kernel(name, Q), mesh, chunk=chunk)
+        G_local, gram = fn(params_from_jax(params), torch.as_tensor(C),
+                           torch.as_tensor(w), torch.as_tensor(X_local), N)
+        out["grad_gram"][name] = (G_local.numpy(), gram.numpy())
+    try:
+        fn({"length_scale": torch.ones(Q)}, torch.as_tensor(C),
+           torch.as_tensor(w), torch.as_tensor(X_local), N)
+        out["unknown_kparams_error"] = None
+    except ValueError as e:
+        out["unknown_kparams_error"] = str(e)
     for name, path, X in payload["models"]:
         G, gram = model_gradient_gram(load_model(path, device="cpu"), X,
                                       mesh)
