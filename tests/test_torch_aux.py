@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu import checkpoint as jckpt
 from edrgp_tpu import profiling as jprofiling
 from edrgp_tpu.inference.hmc import AdaptState as JAdaptState

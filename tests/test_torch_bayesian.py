@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models import bayesian as jbayes
 from edrgp_tpu.models.state import Normalizer as JNormalizer
 from edrgp_tpu.ops import kernels as jkernels

@@ -9,7 +9,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu.data as jdata
 from edrgp_tpu_torch import data
 from edrgp_tpu_torch.ops.cuda._build import BUILD_DIR

@@ -17,7 +17,6 @@ import scipy.sparse
 import sklearn.decomposition as skd
 from scipy.linalg import eigh
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu
 import edrgp_tpu.datasets as jdatasets
 import edrgp_tpu_torch

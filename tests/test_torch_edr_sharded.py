@@ -16,7 +16,6 @@ import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_ranks
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
 from edrgp_tpu.models.state import SGPRModel as JSGPRModel
 from edrgp_tpu.models.svgp import SVGPModel as JSVGPModel

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.ops.pallas import rbf as jrbf
 from edrgp_tpu_torch.ops.cuda import _build
 from edrgp_tpu_torch.ops.cuda import rbf as trbf

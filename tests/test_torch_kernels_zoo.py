@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel
 from edrgp_tpu.ops import exact as jexact
 from edrgp_tpu.ops import kernels as jk

@@ -16,7 +16,6 @@ import pytest
 import torch
 
 import torch_ranks
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu.ops import kernels as jk
 from edrgp_tpu.ops import svgp as jsvgp
 from edrgp_tpu.parallel.mesh import factor_devices as jfactor_devices

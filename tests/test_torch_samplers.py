@@ -20,7 +20,6 @@ import torch
 from jax.flatten_util import ravel_pytree
 from scipy.stats import multivariate_normal
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu import metrics as jmetrics
 from edrgp_tpu.inference import hmc as jhmc
 from edrgp_tpu.inference import nuts as jnuts

@@ -36,7 +36,6 @@ import torch
 from scipy.linalg import eigh
 from sklearn.feature_selection import mutual_info_regression
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu
 import edrgp_tpu.datasets as jdatasets
 import edrgp_tpu.utils as jutils

@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 import edrgp_tpu
 from edrgp_tpu.models import SparseGaussianProcessRegressor as JSGPR
 from edrgp_tpu.models.state import ExactGPModel as JExactGPModel

@@ -14,7 +14,6 @@ import optax
 import pytest
 import torch
 
-from torch_ranks import one_torch_thread  # noqa: F401 (autouse)
 from edrgp_tpu import EffectiveDimensionalityReduction as JEDR
 from edrgp_tpu import SVDTransformer as JSVD
 from edrgp_tpu.data import MMapDataset as JMMapDataset

@@ -5,28 +5,36 @@ Each function runs in every rank of a gloo group started by
 test module to hold against the JAX package.  This module imports no JAX,
 so a rank starts in the time torch takes to import.
 
-It also holds :func:`one_torch_thread`, the autouse fixture every port test
-module imports.
+Importing it also sets the suite's thread policy, for the test process and
+the ranks it starts: one thread in every BLAS, OpenMP and torch pool.  Each
+worker of a parallel run collects every test file before it runs a test,
+and four test files import this module, so the policy holds for the whole
+run; no other file of ``tests/`` sets a thread count.
 """
 
-import numpy as np
-import pytest
-import torch
+import os
 
-from edrgp_tpu_torch.convert import params_from_jax
-from edrgp_tpu_torch.ops import kernels
+# numpy's OpenBLAS starts one thread a core, and its idle threads spin.
+# The first 8 tests of test_edr.py alone on an 8-core host took 36.4 s of
+# wall and 200.8 s of CPU with 8 threads, 33.2 s and 63.4 s with one; under
+# the tier-1 command's six workers the spinning took the cores from the
+# tests, and the run hit its 1,470 s clock (those 8 tests alone held a
+# worker ~1,260 s).  With one thread the command ends in about 400 s.  The
+# variables reach libraries loaded later and the processes the tests start;
+# threadpoolctl reaches the pools loaded already (pytest's plugins load
+# numpy before any test file).
+for _var in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+    os.environ.setdefault(_var, "1")
 
+import numpy as np  # noqa: E402
+import threadpoolctl  # noqa: E402
+import torch  # noqa: E402
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for the importing module's tests: the suite's
-    workers share the machine's cores, and torch's default thread count
-    there makes each small operation wait on threads the other workers
-    hold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_THREAD_LIMITS = threadpoolctl.threadpool_limits(1)
+torch.set_num_threads(1)
+
+from edrgp_tpu_torch.convert import params_from_jax  # noqa: E402
+from edrgp_tpu_torch.ops import kernels  # noqa: E402
 
 
 def _kernel(name, q):
