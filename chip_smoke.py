@@ -27,6 +27,15 @@ Phases, in order, each printing one JSON line:
 3. nlml — NLML value+grad at N=10,000, Q=8, RBF-ARD: ms per evaluation
    through the kernels and through the plain autograd backward, and the
    largest relative gradient difference between the two;
+3a. kinv — Ky⁻¹ from the factor at N=8,192, Q=10 (main_path's data,
+   its kernel's parameters at their start) by the NLML adjoint's blocked
+   trtri + lauum, mirrored: ms from CUDA events beside its bound (2N³/3
+   flops at the fp32 peak) and beside ``torch.cholesky_inverse`` as
+   ``library_ms`` (the port no longer calls it), each one's largest error
+   against the float64 inverse of the same factor relative to its largest
+   entry (limit 1e-4 for the blocked one), exact symmetry; then a
+   five-iteration single-start fit there, in which every evaluation with
+   a gradient must form Ky⁻¹ by the blocked path;
 4. small_reference — the N=500 acceptance recipe on the card (float32)
    against the port's CPU float64 run: the two subspaces must agree;
 5. main_path — ``EffectiveDimensionalityReduction(GaussianProcessRegressor(
@@ -555,6 +564,59 @@ def phase_nlml(device="cuda", N=10_000, Q=8):
          value_rel_diff=value_rel,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del m
+    torch.cuda.empty_cache()
+
+
+def phase_kinv(device="cuda", N=8192, Q=10):
+    """Ky⁻¹ at N=8,192 by the NLML adjoint's blocked path against its bound
+    and ``torch.cholesky_inverse``; every evaluation of a fit there takes
+    the blocked path."""
+    import torch
+    from edrgp_tpu_torch.datasets import get_beta_inputs, get_edr_target
+    from edrgp_tpu_torch.models.state import ExactGPModel
+    from edrgp_tpu_torch.ops import exact, linalg
+    from edrgp_tpu_torch.ops.kernels import RBF
+    rng = np.random.default_rng(0)
+    X = get_beta_inputs(N, Q, rng=rng)
+    B = np.linalg.qr(rng.normal(size=(Q, 3)))[0]
+    y = get_edr_target(X @ B, sigma=0.1, rng=rng)
+    m = ExactGPModel(X, y, RBF(Q, ARD=True), device=device)
+    with torch.no_grad():
+        L = linalg.cholesky_once(exact._Ky(m, m._X))
+    b = linalg.KINV_BLOCK
+
+    def blocked():
+        return linalg._mirror_upper(linalg._sym_square_upper(
+            linalg._tri_inv(L, b), b), b)
+
+    def library():
+        return torch.cholesky_inverse(L)
+
+    want = torch.cholesky_inverse(L.double())
+    scale = float(want.abs().max())
+    got = blocked()
+    err = float((got.double() - want).abs().max()) / scale
+    lib_err = float((library().double() - want).abs().max()) / scale
+    symmetric = bool(torch.equal(got, got.mT))
+    del got
+    ms = cuda_ms(blocked, 5)
+    lib_ms = cuda_ms(library, 5)
+    bound_ms = 2 * N ** 3 / 3 / FP32_FLOPS_PER_MS
+    before = dict(linalg.KINV_FORMED)
+    with count_calls(exact, "nlml",
+                     keep=lambda v: v.requires_grad) as calls:
+        m.optimize(max_iters=5, num_restarts=1)
+    formed = {k: linalg.KINV_FORMED[k] - before[k] for k in before}
+    evals = sum(1 for grad, _ in calls if grad)
+    emit(phase="kinv", N=N, Q=Q, block=b, ms=ms, bound_ms=bound_ms,
+         share_of_bound=bound_ms / ms, library="torch.cholesky_inverse",
+         library_ms=lib_ms, max_rel_err=err, library_max_rel_err=lib_err,
+         symmetric=symmetric, fit_evaluations=evals, kinv_formed=formed)
+    check(err < 1e-4, f"blocked Ky⁻¹ off by {err:.3g} of its largest entry")
+    check(symmetric, "blocked Ky⁻¹ is not exactly symmetric")
+    check(evals >= 1 and formed == {"blocked": evals, "single_block": 0},
+          f"{evals} evaluations, Ky⁻¹ formed {formed}")
+    del m, L, want
     torch.cuda.empty_cache()
 
 
@@ -3066,6 +3128,7 @@ def main():
     phase_trace()
     summary = phase_kernels()
     phase_nlml()
+    phase_kinv()
     phase_small_reference()
     launches, main_comps, main_handoff = phase_main_path()
     finish_notebooks = phase_notebooks()

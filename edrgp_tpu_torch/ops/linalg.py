@@ -1,10 +1,11 @@
 """Cholesky-centric linear algebra with escalating jitter.
 
 The port of the parts of :mod:`edrgp_tpu.ops.linalg` the exact and sparse
-GPs need.  The factorizations go to ``torch.linalg`` (cuSOLVER on the card,
-LAPACK on the CPU); the hand-blocked TPU recursions of the JAX package have
-no counterpart here.  Failure of a factorization is read from
-``torch.linalg.cholesky_ex``'s ``info``.
+GPs need.  The factorizations and triangular solves go to ``torch.linalg``
+(cuSOLVER and cuBLAS on the card, LAPACK on the CPU).  The NLML's adjoint
+forms Ky⁻¹ from the factor by the JAX package's blocked recursions, as
+products (:func:`_tri_inv`, :func:`_sym_square_upper`).  Failure of a
+factorization is read from ``torch.linalg.cholesky_ex``'s ``info``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,16 @@ from ..config import MAX_JITTER_TRIES, base_jitter
 
 __all__ = ["safe_cholesky", "cholesky_once", "tri_solve", "cho_solve",
            "logdet_from_chol", "logdet_and_quad", "jitter_ladder",
-           "add_jitter"]
+           "add_jitter", "KINV_FORMED"]
+
+#: Block size of the blocked Ky⁻¹ formation, chosen on an H100 at N=8,192
+#: from 256, 512 and 1,024 (``PERF.md``).  A matrix of at most this many
+#: rows is one block.
+KINV_BLOCK = 512
+
+#: Ky⁻¹ formations of the single-matrix NLML adjoint since import: by the
+#: blocked recursions, and by one solve and one product (N ≤ KINV_BLOCK).
+KINV_FORMED = {"blocked": 0, "single_block": 0}
 
 
 def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
@@ -129,10 +139,18 @@ class LogdetAndQuad(torch.autograd.Function):
     """(log|Ky|, yᵀKy⁻¹y) with the trace-form adjoint.
 
     ∂log|K|/∂K = K⁻¹ and ∂(yᵀK⁻¹y)/∂K = −ααᵀ with α = K⁻¹y, so the
-    backward never differentiates through the factorization.  The cotangent
-    of K is symmetrized: the fused RBF adjoint downstream
-    (:class:`edrgp_tpu_torch.ops.exact.RBFKy`) is valid only for a symmetric
-    one.  A batch Ky [C, N, N] against one y [N] gives [C] of each, every
+    backward never differentiates through the factorization.  For one
+    matrix the backward forms Ky⁻¹ = L⁻ᵀL⁻¹ from the factor L as the JAX
+    package's ``_ldq_bwd`` does (``edrgp_tpu/ops/linalg.py``): L⁻¹ by the
+    blocked trtri (:func:`_tri_inv`, ~N³/3 flops), then the upper block
+    triangle of L⁻ᵀL⁻¹ by the blocked lauum (:func:`_sym_square_upper`,
+    ~N³/3), almost all of both in products; ``torch.cholesky_inverse``
+    solves against the identity instead, 2N³.  The cotangent of K is built
+    in that buffer and mirrored, so it is exactly symmetric: the fused RBF
+    adjoint downstream (:class:`edrgp_tpu_torch.ops.exact.RBFKy`) is valid
+    only for a symmetric one.
+
+    A batch Ky [C, N, N] against one y [N] gives [C] of each, every
     matrix on its own jitter ladder; there the forward forms L⁻¹ by one
     batched triangular solve and takes α and, in the backward, K⁻¹ = L⁻ᵀL⁻¹
     from it by batched products (``chip_smoke.py``'s nuts_gp profile of 16
@@ -166,9 +184,9 @@ class LogdetAndQuad(torch.autograd.Function):
         dK = dy = None
         if L.ndim == 2:
             if ctx.needs_input_grad[0]:
-                dK = -g_quad * torch.outer(alpha, alpha)
-                dK = dK + g_logdet * torch.cholesky_inverse(L)
-                dK = 0.5 * (dK + dK.mT)
+                dK = _sym_square_upper(_tri_inv(L, KINV_BLOCK), KINV_BLOCK)
+                dK.mul_(g_logdet).addr_(-g_quad * alpha, alpha)
+                dK = _mirror_upper(dK, KINV_BLOCK)
             if ctx.needs_input_grad[1]:
                 dy = 2.0 * g_quad * alpha
             return dK, dy
@@ -180,6 +198,85 @@ class LogdetAndQuad(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dy = (2.0 * g_quad[:, None] * alpha).sum(0)
         return dK, dy
+
+
+def _block_edges(n: int, block: int) -> list:
+    """0, block, 2·block, …, n: the bounds of the blocks; the last may be
+    short."""
+    return list(range(0, n, block)) + [n]
+
+
+def _tri_inv(L: torch.Tensor, block: int) -> torch.Tensor:
+    """L⁻¹ of a lower-triangular L [N, N], zero above the diagonal.
+
+    The port of ``tri_inv_blocked`` (``edrgp_tpu/ops/linalg.py``), the
+    LAPACK ``trtri`` blocking: with D_i the diagonal blocks of L,
+    L⁻¹[i, j] = −D_i⁻¹ · Σ_{j≤k<i} L[i, k] · L⁻¹[k, j], ~N³/3 flops.  The
+    D_i⁻¹ come from one batched triangular solve; the sums are products
+    into one N × N buffer.  They are taken right-looking: once block row k
+    of L⁻¹ is final, one product subtracts L[i, k]·L⁻¹[k, :] from every
+    block row i below it (on an H100 at N=8,192 this order took 6.2 ms,
+    the reference's per-block strips 6.7 and its row batches 8.6;
+    ``PERF.md``).  N ≤ ``block``: one solve against the identity.
+    """
+    n = L.shape[-1]
+    eye = torch.eye(min(n, block), dtype=L.dtype, device=L.device)
+    if n <= block:
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+    full = n // block * block
+    diag = L[:full, :full].unflatten(0, (-1, block)).unflatten(2, (-1, block))
+    diag = diag.diagonal(dim1=0, dim2=2).permute(2, 0, 1)   # [P, b, b] view
+    Dinv = list(torch.linalg.solve_triangular(diag, eye.expand_as(diag),
+                                              upper=False))
+    if full < n:
+        Dinv.append(torch.linalg.solve_triangular(
+            L[full:, full:], eye[:n - full, :n - full], upper=False))
+    inv = L.new_zeros(L.shape)      # row-major, whatever L's layout
+    edges = _block_edges(n, block)
+    for s, t, D in zip(edges[:-1], edges[1:], Dinv):
+        inv[s:t, s:t] = D
+        if s:
+            # this block row holds −Σ_k L[i, k]·L⁻¹[k, :i] (the updates below)
+            inv[s:t, :s] = D @ inv[s:t, :s]
+        if t < n:
+            # this block row is final: its terms go to every row below it
+            inv[t:, :t].addmm_(L[t:, s:t], inv[s:t, :t], alpha=-1)
+    return inv
+
+
+def _sym_square_upper(Linv: torch.Tensor, block: int) -> torch.Tensor:
+    """The upper block triangle of Linvᵀ·Linv for lower-triangular Linv
+    [N, N], diagonal blocks whole; below them the result is left unset
+    (:func:`_mirror_upper` fills it).
+
+    The port of ``sym_square_colbatch`` (``edrgp_tpu/ops/linalg.py``), the
+    LAPACK ``lauum`` blocking: block column j of the upper triangle sums
+    over the rows k ≥ j only, one [N−jb, (j+1)b]ᵀ·[N−jb, b] product,
+    ~N³/3 flops in all.  N ≤ ``block``: one product.  Counted in
+    :data:`KINV_FORMED`.
+    """
+    n = Linv.shape[-1]
+    if n <= block:
+        KINV_FORMED["single_block"] += 1
+        return Linv.mT @ Linv
+    KINV_FORMED["blocked"] += 1
+    out = Linv.new_empty(Linv.shape)
+    edges = _block_edges(n, block)
+    for s, t in zip(edges[:-1], edges[1:]):
+        torch.matmul(Linv[s:, :t].mT, Linv[s:, s:t], out=out[:t, s:t])
+    return out
+
+
+def _mirror_upper(A: torch.Tensor, block: int) -> torch.Tensor:
+    """A [N, N] with its strictly lower triangle set, in place, to the
+    transpose of its strictly upper one, so exactly symmetric."""
+    edges = _block_edges(A.shape[-1], block)
+    for s, t in zip(edges[:-1], edges[1:]):
+        A[s:t, :s] = A[:s, s:t].mT
+        D = A[s:t, s:t]
+        upper = D.triu(1)
+        D.triu_().add_(upper.mT)
+    return A
 
 
 def _solve_chains(L: torch.Tensor, y: torch.Tensor):
