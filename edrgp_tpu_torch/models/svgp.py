@@ -19,6 +19,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..config import default_dtype, resolve_device
+from ..ops import linalg as _linalg
 from ..ops import svgp as _svgp
 from ..ops.exact import grad_batch_size
 from ..ops.kernels import RBF, Kernel
@@ -26,7 +27,17 @@ from . import state as _state
 from .base import _BaseGP
 from .state import Normalizer, _BaseModel
 
-__all__ = ["SVGPModel", "SVGPRegressor"]
+__all__ = ["SVGPModel", "SVGPRegressor", "STEPS"]
+
+#: SVGP steps taken since import (one Adam step and one natural-gradient
+#: step each), by :meth:`SVGPModel.optimize` and
+#: :meth:`SVGPModel.optimize_stream` alike.
+STEPS = {"taken": 0}
+
+#: Whether a streamed fit on the card replays its steps from a CUDA graph
+#: (:class:`_StepGraph`); tests turn it off to hold the graph to the step
+#: taken op by op.
+CAPTURE_STEP = True
 
 
 def _rho(step: int) -> float:
@@ -71,6 +82,90 @@ class _ChunkFeed:
         return out
 
 
+class _StepGraph:
+    """One SVGP step captured as a CUDA graph, replayed for every later step
+    of a streamed fit on the card.
+
+    Eagerly a step is ~640 launches and five host reads of a factor's
+    status, so the host paces it; a replay is one launch, so the card does.
+    The batch, its targets and ρ enter through static buffers; the
+    parameters, their gradients, Adam's state (``capturable``) and q(u) are
+    updated in place.  The capture runs inside
+    :func:`~edrgp_tpu_torch.ops.linalg.deferred_status`: each factor takes
+    rung 0 of the jitter ladder and ORs its failure into :attr:`failed`,
+    which the fit reads once a chunk (:meth:`settle`).  A chunk with a
+    failed factor is put back to the state :meth:`save` kept before it and
+    taken again eagerly (:attr:`eager`), where the ladder climbs.  A replay
+    counts the factorizations its capture counted in
+    :data:`edrgp_tpu_torch.ops.linalg.FACTORS`."""
+
+    def __init__(self, model, opt, Xb, yb, n_total):
+        self.model, self.opt, self.eager = model, opt, False
+        self.X, self.y = torch.empty_like(Xb), torch.empty_like(yb)
+        self.rho = torch.zeros((), dtype=Xb.dtype, device=Xb.device)
+        self.failed = torch.zeros((), dtype=torch.bool, device=Xb.device)
+        model.qstate = _svgp.SVGPState(*(t.clone() for t in model.qstate))
+        params = list(model.parameters())
+        counted = dict(_linalg.FACTORS)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph), \
+                _linalg.deferred_status(self.failed):
+            self.elbo, state = model._take_step(opt, self.X, self.y,
+                                                n_total, self.rho)
+            for held, new in zip(model.qstate, state):
+                held.copy_(new)
+        self.factors = {k: _linalg.FACTORS[k] - counted[k] for k in counted}
+        _linalg.FACTORS.update(counted)          # the capture ran nothing
+        self.grads = [(p, p.grad) for p in params]
+        self.held = ([p.detach() for p in params]
+                     + [v for p in params
+                        for v in opt.state.get(p, {}).values()
+                        if isinstance(v, torch.Tensor)]
+                     + list(model.qstate))
+
+    def replay(self, Xb, yb, rho) -> torch.Tensor:
+        self.X.copy_(Xb)
+        self.y.copy_(yb)
+        self.rho.fill_(rho)
+        self.graph.replay()
+        for k, v in self.factors.items():
+            _linalg.FACTORS[k] += v
+        return self.elbo
+
+    def take_eagerly(self, Xb, yb, n_total, rho) -> torch.Tensor:
+        elbo, state = self.model._take_step(self.opt, Xb, yb, n_total, rho)
+        for held, new in zip(self.model.qstate, state):
+            held.copy_(new)
+        return elbo
+
+    def save(self) -> list:
+        """A copy of the state the next steps start from."""
+        return [t.clone() for t in self.held]
+
+    def settle(self, saved: list) -> bool:
+        """Whether every factor since ``saved`` succeeded at rung 0 (one
+        host read).  If not, the state is put back to ``saved``."""
+        if not bool(self.failed):
+            return True
+        for t, s in zip(self.held, saved):
+            t.copy_(s)
+        self.failed.zero_()
+        return False
+
+    def retake(self, step, k: int):
+        """Take ``k`` steps by ``step(i)`` eagerly, then point each
+        parameter's ``.grad`` at the graph's gradient again."""
+        self.eager = True
+        try:
+            for i in range(k):
+                elbo = step(i)
+        finally:
+            self.eager = False
+            for p, g in self.grads:
+                p.grad = g
+        return elbo
+
+
 class SVGPModel(_BaseModel):
     """Minibatch SVGP regression with the GPy-like model surface."""
 
@@ -96,6 +191,7 @@ class SVGPModel(_BaseModel):
                                            device=device))
         self.qstate = _svgp.init_svgp_state(self.Z.shape[0], dtype, device)
         self._seed = seed
+        self._graph = None
         self.elbo_trace_ = None
 
     @classmethod
@@ -120,9 +216,26 @@ class SVGPModel(_BaseModel):
     def _step(self, opt, Xb, yb, n_total, rho) -> torch.Tensor:
         """One Adam step on the minibatch ELBO, then one natural-gradient
         step of q(u) at the updated parameters; returns the ELBO before
-        both, on the device.  The parts run under ``torch.profiler`` labels
-        (``svgp.q``, ``svgp.elbo``, ``svgp.adam``, ``svgp.natgrad``; the
-        backward is the rest), which cost a few µs outside a profiler."""
+        both, on the device.  Inside a streamed fit on the card it is a
+        replay of :class:`_StepGraph`.  It runs under the
+        ``torch.profiler`` label ``svgp.step``; :data:`STEPS` counts it."""
+        with record_function("svgp.step"):
+            graph = self._graph
+            if graph is None:
+                elbo, self.qstate = self._take_step(opt, Xb, yb, n_total,
+                                                    rho)
+            elif graph.eager:
+                elbo = graph.take_eagerly(Xb, yb, n_total, rho)
+            else:
+                elbo = graph.replay(Xb, yb, rho)
+        STEPS["taken"] += 1
+        return elbo
+
+    def _take_step(self, opt, Xb, yb, n_total, rho):
+        """(ELBO, q(u) after) of one step taken op by op, its parts under
+        the labels ``svgp.q``, ``svgp.elbo``, ``svgp.adam`` and
+        ``svgp.natgrad`` (the backward is the rest), which cost a few µs
+        outside a profiler.  ``rho`` is a float or a 0-d tensor."""
         with record_function("svgp.q"):
             m, S = _svgp.q_from_natural(self.qstate)
         opt.zero_grad(set_to_none=True)
@@ -132,9 +245,9 @@ class SVGPModel(_BaseModel):
         with record_function("svgp.adam"):
             opt.step()
         with record_function("svgp.natgrad"):
-            self.qstate = _svgp.natural_gradient_update(
-                self, self.qstate, Xb, yb, n_total, rho)
-        return elbo.detach()
+            state = _svgp.natural_gradient_update(self, self.qstate, Xb, yb,
+                                                  n_total, rho)
+        return elbo.detach(), state
 
     def optimize(self, messages: bool = False, max_iters: int = 1000,
                  batch_size: int = 256, lr: float = 3e-3, **_ignored):
@@ -172,30 +285,62 @@ class SVGPModel(_BaseModel):
         :meth:`edrgp_tpu_torch.data.MMapDataset.batches` on the native
         loader.  y_b is normalized on the host with the model's normalizer.
         ``scan_chunk`` batches go to the device in one copy (see
-        :class:`_ChunkFeed`); no value is read back to the host inside a
-        chunk, and the minibatch ELBO only every ``log_every`` steps and at
-        the end.
+        :class:`_ChunkFeed`), gathered under the ``torch.profiler`` label
+        ``svgp.loader`` and copied under ``svgp.feed``; the next chunk is
+        gathered while the card takes this one's steps.  On the card
+        (:data:`CAPTURE_STEP`) the first chunk's steps are taken op by op and the
+        rest replay one step captured as a CUDA graph (:class:`_StepGraph`,
+        captured under the label ``svgp.capture``), with one host read a
+        chunk, of whether every factor succeeded without jitter; where one
+        did not, the chunk is taken again op by op.  The minibatch ELBO is
+        read back only every ``log_every`` steps and at the end.
         """
-        opt = torch.optim.Adam(self.parameters(), lr=float(lr))
+        graphs = CAPTURE_STEP and self._X.device.type == "cuda"
+        opt = torch.optim.Adam(self.parameters(), lr=float(lr),
+                               capturable=graphs)
         chunk = max(int(scan_chunk), 1)
         feed = _ChunkFeed(self._X.device, self._X.dtype)
         mu_y, std_y = self.normalizer.mean, self.normalizer.std
+
+        def gather(k):
+            with record_function("svgp.loader"):
+                Xs, ys = zip(*(next(batches) for _ in range(k)))
+            with record_function("svgp.feed"):
+                return feed.put(np.stack(Xs), (np.stack(ys) - mu_y) / std_y)
+
         elbo = torch.tensor(float("nan"))
         t = 0
-        while t < steps:
-            k = min(chunk, steps - t)
-            Xs, ys = zip(*(next(batches) for _ in range(k)))
-            with record_function("svgp.feed"):
-                Xc, yc = feed.put(np.stack(Xs),
-                                  (np.stack(ys) - mu_y) / std_y)
-            for i in range(k):
-                elbo = self._step(opt, Xc[i], yc[i], n_total, _rho(t + i))
-            if log_every and (t // chunk) % max(log_every // chunk, 1) == 0:
-                if metrics_logger is not None:
-                    metrics_logger.log(t, elbo=float(elbo))
-                if messages:
-                    print(f"step {t}: minibatch ELBO {float(elbo):.2f}")
-            t += k
+        try:
+            pending = gather(min(chunk, steps)) if steps > 0 else None
+            while t < steps:
+                Xc, yc = pending
+                k = Xc.shape[0]
+
+                def step(i, Xc=Xc, yc=yc, t=t):
+                    return self._step(opt, Xc[i], yc[i], n_total, _rho(t + i))
+
+                if graphs and self._graph is None and t > 0:
+                    with record_function("svgp.capture"):
+                        self._graph = _StepGraph(self, opt, Xc[0], yc[0],
+                                                 n_total)
+                saved = None if self._graph is None else self._graph.save()
+                for i in range(k):
+                    elbo = step(i)
+                try:
+                    pending = (gather(min(chunk, steps - t - k))
+                               if t + k < steps else None)
+                finally:
+                    if saved is not None and not self._graph.settle(saved):
+                        elbo = self._graph.retake(step, k)
+                if log_every and (t // chunk) % max(log_every // chunk,
+                                                    1) == 0:
+                    if metrics_logger is not None:
+                        metrics_logger.log(t, elbo=float(elbo))
+                    if messages:
+                        print(f"step {t}: minibatch ELBO {float(elbo):.2f}")
+                t += k
+        finally:
+            self._graph = None
         self._objective = float(-elbo)
         self._cache = None
         return self
@@ -242,6 +387,7 @@ class SVGPModel(_BaseModel):
             torch.as_tensor(v, device=self._X.device)
             for v in state["qstate"]))
         self._seed = 0
+        self._graph = None
         self.elbo_trace_ = None
 
 

@@ -5,10 +5,13 @@ GPs need.  The factorizations and triangular solves go to ``torch.linalg``
 (cuSOLVER and cuBLAS on the card, LAPACK on the CPU).  The NLML's adjoint
 forms Ky⁻¹ from the factor by the JAX package's blocked recursions, as
 products (:func:`_tri_inv`, :func:`_sym_square_upper`).  Failure of a
-factorization is read from ``torch.linalg.cholesky_ex``'s ``info``.
+factorization is read from ``torch.linalg.cholesky_ex``'s ``info``, on the
+host, or, inside :func:`deferred_status`, into a flag on the device.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,7 +19,7 @@ from ..config import MAX_JITTER_TRIES, base_jitter
 
 __all__ = ["safe_cholesky", "cholesky_once", "tri_solve", "cho_solve",
            "logdet_from_chol", "logdet_and_quad", "jitter_ladder",
-           "add_jitter", "KINV_FORMED"]
+           "add_jitter", "deferred_status", "KINV_FORMED", "FACTORS"]
 
 #: Block size of the blocked Ky⁻¹ formation, chosen on an H100 at N=8,192
 #: from 256, 512 and 1,024 (``PERF.md``).  A matrix of at most this many
@@ -26,6 +29,29 @@ KINV_BLOCK = 512
 #: Ky⁻¹ formations of the single-matrix NLML adjoint since import: by the
 #: blocked recursions, and by one solve and one product (N ≤ KINV_BLOCK).
 KINV_FORMED = {"blocked": 0, "single_block": 0}
+
+#: Cholesky factorizations since import: each ``cholesky_ex`` call of the
+#: jitter ladder, one a rung tried (a batch's call counts once), and each
+#: factor :func:`safe_cholesky` recomputes on the autograd graph.
+FACTORS = {"ladder": 0, "graph": 0}
+
+#: The flags of the :func:`deferred_status` blocks the caller is in.
+_DEFERRED: list = []
+
+
+@contextlib.contextmanager
+def deferred_status(flag: torch.Tensor):
+    """A block in which no factorization reads its status to the host, so
+    that a CUDA graph can capture it: :func:`jitter_ladder` takes rung 0
+    (no jitter) and ORs each failure into ``flag``, a bool tensor on the
+    device, and :func:`safe_cholesky` recomputes the factor on the graph
+    unchecked (single matrices: a batch's ladder still reads).  The caller reads ``flag`` once afterwards and, where it is
+    set, does the work again outside the block, where the ladder climbs."""
+    _DEFERRED.append(flag)
+    try:
+        yield flag
+    finally:
+        _DEFERRED.pop()
 
 
 def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
@@ -45,13 +71,18 @@ def jitter_ladder(A: torch.Tensor, jitter0: float | None = None):
     if jitter0 is None:
         jitter0 = base_jitter(A.dtype)
     A = A.detach()
+    FACTORS["ladder"] += 1
     L, info = torch.linalg.cholesky_ex(A)
+    if _DEFERRED:
+        _DEFERRED[-1].logical_or_(info != 0)
+        return 0.0, L
     if int(info) == 0:
         return 0.0, L
     diag_mean = max(float(A.diagonal().mean()), 1.0)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     for k in range(1, MAX_JITTER_TRIES + 1):
         jitter = jitter0 * 10.0 ** (k - 1) * diag_mean
+        FACTORS["ladder"] += 1
         L, info = torch.linalg.cholesky_ex(A + jitter * eye)
         if int(info) == 0:
             return jitter, L
@@ -63,6 +94,7 @@ def _jitter_ladder_batched(A: torch.Tensor, jitter0: float | None):
     if jitter0 is None:
         jitter0 = base_jitter(A.dtype)
     A = A.detach()
+    FACTORS["ladder"] += 1
     L, info = torch.linalg.cholesky_ex(A)
     jitter = torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
     failed = info != 0
@@ -73,6 +105,7 @@ def _jitter_ladder_batched(A: torch.Tensor, jitter0: float | None):
     for k in range(1, MAX_JITTER_TRIES + 1):
         idx = failed.nonzero(as_tuple=True)
         jit = jitter0 * 10.0 ** (k - 1) * diag_mean[idx]
+        FACTORS["ladder"] += 1
         L_k, info_k = torch.linalg.cholesky_ex(
             A[idx] + jit[:, None, None] * eye)
         ok = info_k == 0
@@ -106,6 +139,9 @@ def safe_cholesky(A: torch.Tensor, jitter0: float | None = None):
     if jitter is None:
         return L + 0.0 * A
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    FACTORS["graph"] += 1
+    if _DEFERRED:
+        return torch.linalg.cholesky_ex(A + jitter * eye).L
     return torch.linalg.cholesky(A + jitter * eye)
 
 

@@ -95,7 +95,10 @@ def _kl(m, S, Luu):
     LiSLi = tri_solve(Luu, LiS.T, lower=True)
     logdet_Kuu = 2.0 * torch.log(Luu.diagonal()).sum()
     logdet_S = 2.0 * torch.log(safe_cholesky(S).diagonal()).sum()
-    return 0.5 * (torch.trace(LiSLi) + Lim @ Lim - M + logdet_Kuu - logdet_S)
+    # the diagonal's sum, not torch.trace: trace's backward reads its
+    # gradient to the host (index_fill_ with a tensor value)
+    return 0.5 * (LiSLi.diagonal().sum() + Lim @ Lim - M + logdet_Kuu
+                  - logdet_S)
 
 
 def svgp_elbo(gp, m, S, Xb, yb, n_total) -> torch.Tensor:

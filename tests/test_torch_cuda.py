@@ -2,7 +2,8 @@
 the NLML gradient through the kernels against plain autograd, a small EDR
 fit on the card against the CPU float64 fit, an SGPR model's gradients
 through kernel G against a CPU float64 model, the SVGP ops, the stream feed,
-G and K at the classifier EDR's shapes, the heteroscedastic NLML's per-row
+the streamed fit's captured step against the step taken op by op, G and
+K at the classifier EDR's shapes, the heteroscedastic NLML's per-row
 noise through kernels K and A, each classifier against its CPU float64
 model, and the samplers' chain batches: K and A over a leading chain axis,
 a chain whose factorization fails, ``nlml_chains`` and the Bayesian
@@ -424,6 +425,71 @@ def test_cuda_stream_feed_is_the_synchronous_feed(card, monkeypatch):
         states.append([t.clone() for t in (*m.state_dict().values(),
                                            *m.qstate)])
     assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+def _stream_fit(card, X, y, batches, graph, monkeypatch):
+    """(parameters and q(u), steps counted, factorizations counted) of a
+    40-step streamed fit on the card, its steps replayed from a CUDA graph
+    or taken op by op."""
+    from edrgp_tpu_torch.models import svgp as svgp_models
+    from edrgp_tpu_torch.models.svgp import SVGPModel
+    monkeypatch.setattr(svgp_models, "CAPTURE_STEP", graph)
+    m = SVGPModel(X, y, RBF(4, ARD=True), num_inducing=64, device=card)
+    steps = svgp_models.STEPS["taken"]
+    factors = sum(linalg.FACTORS.values())
+    m.optimize_stream(iter(batches), n_total=4096, steps=40, lr=1e-2,
+                      scan_chunk=8)
+    torch.cuda.synchronize()
+    return ([t.detach().clone() for t in (*m.parameters(), *m.qstate)],
+            svgp_models.STEPS["taken"] - steps,
+            sum(linalg.FACTORS.values()) - factors)
+
+
+def _stream_problem():
+    X, y = _svgp_problem(4096, 4, 5)
+    rng = np.random.default_rng(6)
+    return X, y, [(X[i], y[i]) for i in (rng.integers(0, 4096, 512)
+                                         for _ in range(40))]
+
+
+@pytest.mark.cuda
+def test_cuda_stream_graph_is_the_eager_fit(card, monkeypatch):
+    """Replays of the captured step take the same 40 steps as the step
+    taken op by op: the same parameters and q(u) to float32 rounding
+    (``capturable`` Adam and a ρ on the device round apart), and the same
+    counts of steps and factorizations."""
+    X, y, batches = _stream_problem()
+    eager, s0, f0 = _stream_fit(card, X, y, batches, False, monkeypatch)
+    graph, s1, f1 = _stream_fit(card, X, y, batches, True, monkeypatch)
+    assert s0 == s1 == 40 and f0 == f1 >= 5 * 40
+    gaps = [_rel(b, a) for a, b in zip(eager, graph)]
+    assert max(gaps) < 1e-4, gaps
+
+
+@pytest.mark.cuda
+def test_cuda_stream_graph_retakes_a_chunk_whose_factor_failed(
+        card, monkeypatch):
+    """A chunk whose flag says a factor failed is put back to the state
+    before it and taken again op by op, so the fit ends where the eager fit
+    ends, with that chunk's steps counted twice."""
+    from edrgp_tpu_torch.models import svgp as svgp_models
+    X, y, batches = _stream_problem()
+    eager, _, _ = _stream_fit(card, X, y, batches, False, monkeypatch)
+    orig = svgp_models._StepGraph.replay
+    replays = []
+
+    def replay(self, Xb, yb, rho):
+        replays.append(rho)
+        out = orig(self, Xb, yb, rho)
+        if len(replays) == 3:
+            self.failed.fill_(True)
+        return out
+
+    monkeypatch.setattr(svgp_models._StepGraph, "replay", replay)
+    graph, steps, _ = _stream_fit(card, X, y, batches, True, monkeypatch)
+    assert steps == 40 + 8 and len(replays) == 40 - 8
+    gaps = [_rel(b, a) for a, b in zip(eager, graph)]
+    assert max(gaps) < 1e-4, gaps
 
 
 @pytest.mark.cuda

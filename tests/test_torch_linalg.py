@@ -107,3 +107,44 @@ def test_nlml_gradient_matches_autograd_through_cholesky(n, block,
     for got, want in zip(*out):
         torch.testing.assert_close(got, want, rtol=1e-8,
                                    atol=1e-10 * float(want.abs().max()))
+
+
+def test_deferred_status_flags_a_failed_factor_without_climbing():
+    """Inside ``deferred_status`` the ladder takes rung 0 and ORs each
+    failure into the flag; outside it climbs as before."""
+    good = torch.eye(4, dtype=torch.float64) * 2.0
+    bad = -torch.eye(4, dtype=torch.float64)
+    flag = torch.zeros((), dtype=torch.bool)
+    with linalg.deferred_status(flag):
+        jitter, L = linalg.jitter_ladder(good)
+        assert not bool(flag) and jitter == 0.0
+        assert torch.equal(L, torch.linalg.cholesky(good))
+        before = dict(linalg.FACTORS)
+        jitter, _ = linalg.jitter_ladder(bad)
+        assert bool(flag) and jitter == 0.0
+        assert linalg.FACTORS["ladder"] == before["ladder"] + 1
+    assert not linalg._DEFERRED
+    jitter, _ = linalg.jitter_ladder(bad)         # climbs (and fails) again
+    assert linalg.FACTORS["ladder"] > before["ladder"] + 2
+
+
+def test_deferred_safe_cholesky_recomputes_unchecked(monkeypatch):
+    """``safe_cholesky``'s factor on the graph reads no status inside
+    ``deferred_status`` (``cholesky_ex``, not ``cholesky``), with the same
+    factor and gradient."""
+    A0 = torch.randn(6, 6, dtype=torch.float64)
+    A0 = A0 @ A0.T + 6 * torch.eye(6, dtype=torch.float64)
+    A = A0.clone().requires_grad_(True)
+    L = linalg.safe_cholesky(A)
+    L.sum().backward()
+    want, grad = L.detach(), A.grad.clone()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.linalg.cholesky checks its status")
+
+    monkeypatch.setattr(torch.linalg, "cholesky", refuse)
+    A = A0.clone().requires_grad_(True)
+    with linalg.deferred_status(torch.zeros((), dtype=torch.bool)):
+        L = linalg.safe_cholesky(A)
+    L.sum().backward()
+    assert torch.equal(L.detach(), want) and torch.allclose(A.grad, grad)
